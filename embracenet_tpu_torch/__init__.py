@@ -9,9 +9,11 @@ becomes a kernel written by hand for Hopper under ``csrc/``.
 Entry points run on the CUDA card.  Without one they raise unless the
 caller asks for ``device="cpu"``; there is no silent CPU fallback.
 
-Ported so far: checkpoint serving (``predict`` / ``evaluate``) for the FFNN,
-CNN and EmbraceNetMultimodal families, with EmbraceNet's docking and
-stochastic embracement in the fused CUDA kernel (``ops/embrace.py``).
+Ported so far: checkpoint serving (``predict`` / ``evaluate``) and
+population training (``training.engine.fit``) for the FFNN, CNN and
+EmbraceNetMultimodal families, with EmbraceNet's docking and stochastic
+embracement in the fused CUDA kernels and their gradient
+(``ops/embrace.py``).
 """
 
 from __future__ import annotations

@@ -106,10 +106,13 @@ class TrainConfig:
     fused_embrace: bool | None = None  # run EmbraceNet docking + stochastic
     #                                 embracement as one fused kernel
     #                                 (ops/embrace.py); same distribution,
-    #                                 different RNG stream.  The JAX
-    #                                 engine's None = auto rule was tuned on
-    #                                 its own hardware; the port's training
-    #                                 engine has not been ported yet
+    #                                 different RNG stream.  Only False
+    #                                 turns it off (the unfused path); the
+    #                                 default stays None, as in the JAX
+    #                                 config, whose automatic rule was tuned
+    #                                 on its own hardware and is not
+    #                                 carried over: here None is on, as in
+    #                                 serving
     width_buckets: bool = False     # slice supernet weights to the
     #                                 population's per-layer width maxima
     #                                 (exact; big FLOP cut when trials are

@@ -11,6 +11,13 @@ import numpy as np
 import torch
 
 
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts with one structure."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
 def tree_to_torch(tree, device=None):
     """Nested dict/list/tuple of array-likes -> same structure of tensors on
     ``device`` (dtypes kept)."""

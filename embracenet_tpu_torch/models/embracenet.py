@@ -15,10 +15,13 @@ head, ``selection_probabilities_FFNN`` p -> [p, 1-p], and modality dropout
 while training (`:178-182`).
 
 ``apply(fused=True)`` runs docking + embracement as the fused CUDA kernel
-(``ops/embrace.py``).  Random draws come from ``seed``: a
+(``ops/embrace.py``, differentiable).  Random draws come from ``seed``: a
 ``torch.Generator`` seeded with it on the input's device feeds dropout,
-modality dropout and the unfused draw, and the fused kernel's Philox is
-keyed by it.  Same distribution as the JAX package, different RNG stream.
+modality dropout and the unfused draw.  While training, the fused kernel's
+Philox key is drawn from that generator (as the JAX package draws it from
+its own key), so the kernel's stream is independent of the generator's;
+in eval mode (serving) the kernel is keyed by ``seed`` itself.  Same
+distribution as the JAX package, different RNG stream.
 """
 
 from __future__ import annotations
@@ -180,7 +183,10 @@ def apply(params, bn_state, hp, x_ffnn, x_cnn, *, train: bool = False,
         availabilities = torch.where(coin >= MODALITY_DROPOUT_P,
                                      one_hot_avail, torch.ones((b, 2), device=dev))
     p_ffnn = float(hp["p_ffnn"])
-    p = torch.tensor([p_ffnn, 1.0 - p_ffnn], device=dev).expand(b, 2)
+    # filled on the device: a host tensor copied to the card would wait
+    # for the device to drain
+    p = torch.stack([torch.full((b,), p_ffnn, device=dev),
+                     torch.full((b,), 1.0 - p_ffnn, device=dev)], dim=-1)
 
     w0 = params["dock0_w"][:f_ffnn.shape[1], :EB]
     w1 = params["dock1_w"][:f_cnn.shape[1], :EB]
@@ -192,12 +198,16 @@ def apply(params, bn_state, hp, x_ffnn, x_cnn, *, train: bool = False,
         pa = p * availabilities if availabilities is not None else p
         p0 = (pa[:, 0] / torch.clamp(pa.sum(-1), min=1e-30)).contiguous()
         x0, x1 = f_ffnn, f_cnn
-        dt = as_dtype(compute_dtype)
-        if dt is not None:
-            x0, x1, w0, w1 = (t.to(dt) for t in (x0, x1, w0, w1))
+        dt = as_dtype(compute_dtype) or x0.dtype
+        x0, x1, w0, w1 = (t.to(dt) for t in (x0, x1, w0, w1))
+        # training keys the kernel with a draw of the step's generator
+        # (JAX: randint from its own key), not with the generator's seed
+        kseed = (torch.randint(0, 2 ** 31 - 1, (), generator=gen, device=dev)
+                 if train else seed)
+        # biases as float32, as the JAX wrapper casts them (bf16 live params)
         h, _ = fused_embrace(x0.contiguous(), x1.contiguous(), w0,
-                             params["dock0_b"][:EB], w1,
-                             params["dock1_b"][:EB], p0, e_mask, seed)
+                             params["dock0_b"][:EB].float(), w1,
+                             params["dock1_b"][:EB].float(), p0, e_mask, kseed)
     else:
         d0 = torch.relu(linear(f_ffnn, w0, params["dock0_b"][:EB],
                                compute_dtype)) * e_mask

@@ -96,7 +96,9 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         x = x.to(dt).float()
         w = w.to(dt).float()
     with _highest_matmul_precision():
-        return torch.matmul(x, w) + b
+        # w.to(x.dtype): bf16 live weights (TrainConfig.param_dtype) promote
+        # to float32, as JAX promotes a mixed product
+        return torch.matmul(x, w.to(x.dtype)) + b
 
 
 def conv1d_ncw(x: torch.Tensor, w: torch.Tensor, compute_dtype=None) -> torch.Tensor:
@@ -107,7 +109,7 @@ def conv1d_ncw(x: torch.Tensor, w: torch.Tensor, compute_dtype=None) -> torch.Te
         return F.conv1d(x.to(dt), w.to(dt), padding=pad).float()
     with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
                                     allow_tf32=False):
-        return F.conv1d(x, w, padding=pad)
+        return F.conv1d(x, w.to(x.dtype), padding=pad)
 
 
 def maxpool1d(x: torch.Tensor, kernel: int = 10, stride: int = 2) -> torch.Tensor:

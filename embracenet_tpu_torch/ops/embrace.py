@@ -1,27 +1,39 @@
-"""Fused EmbraceNet docking + stochastic embracement (forward).
+"""Fused EmbraceNet docking + stochastic embracement.
 
-Port of the Pallas TPU kernel ``embracenet_tpu/ops/pallas/embrace.py``
-(``_kernel`` behind ``fused_embrace``).  Both docking matmuls, the ReLU,
-the per-(row, feature) Bernoulli draw and the select run in one CUDA kernel
-written for Hopper (``csrc/embrace.cu``), so the ``[B, E]`` docking
+Port of the Pallas TPU kernels of ``embracenet_tpu/ops/pallas/embrace.py``
+(``_kernel`` behind ``fused_embrace``, and its full-E variant
+``_kernel_fulle`` behind ``_fused_fwd_fulle``).  Both docking matmuls, the
+ReLU, the per-(row, feature) Bernoulli draw and the select run in one CUDA
+kernel written for Hopper (``csrc/embrace.cu``), so the ``[B, E]`` docking
 activations never reach device memory.
 
-* :func:`fused_embrace` is the wrapper.  On a CUDA tensor it launches the
-  kernel or raises; on a CPU tensor it runs :func:`fused_embrace_reference`
-  with uniforms from a ``torch.Generator`` seeded with ``seed``.
-* :func:`fused_embrace_reference` is the plain PyTorch version of the same
-  function with the uniforms ``u`` given: the tests and ``chip_smoke.py``
-  hold the kernel against it.
-* ``LAUNCHES`` counts kernel launches, so a run can show that its path went
-  through the kernel.
+* :func:`fused_embrace` is differentiable (:class:`FusedEmbrace`, the
+  counterpart of the JAX custom VJP).  Its forward is the tiled kernel on a
+  CUDA tensor and :func:`fused_embrace_reference` with uniforms from a
+  ``torch.Generator`` seeded with ``seed`` on a CPU tensor; its backward is
+  the JAX ``_bwd``: three masked products in float32, which JAX left to XLA
+  and which stay ``torch.matmul`` (cuBLAS on the card) here.
+* :func:`fused_embrace_fulle` is the full-E kernel, forward only as in JAX.
+  It computes the same function and draws the same Philox stream, so for
+  the same seed both kernels choose identically (the TPU reseeded per
+  B-block, ``seed + i``, so its two kernels did not).
+* :func:`fused_embrace_reference` is the plain PyTorch version with the
+  uniforms ``u`` given: the tests and ``chip_smoke.py`` hold both kernels
+  against it.
+* ``LAUNCHES`` and ``LAUNCHES_FULLE`` count kernel launches, so a run can
+  show that its path went through the kernel.
 
-Stated divergences from the TPU kernel: the draw is Philox4x32-10 keyed by
-``seed`` with counter (row, feature), not the TPU's PRNG (same distribution,
-different stream); and the operands keep the dtype the caller gives
-(float32 or bfloat16, following ``compute_dtype``) where the TPU wrapper
-always cast them to bfloat16.
+Stated divergences from the TPU kernels: the draw is Philox4x32-10 keyed by
+``seed`` with counter (row, feature), not the TPU's PRNG (same
+distribution, different stream); and the operands keep the dtype the caller
+gives (float32 or bfloat16, following ``compute_dtype``) where the TPU
+wrapper always cast them to bfloat16.
 
-The kernel is built at first use with ``nvcc`` for ``sm_90a`` into
+``seed`` is an int or a 0-d int64 tensor on the operands' device; the
+kernels read a tensor seed from device memory, so a seed drawn on the card
+never waits for the host.
+
+The kernels are built at first use with ``nvcc`` for ``sm_90a`` into
 ``embracenet_tpu_torch/_build/`` (a shared library with a plain C
 interface, loaded with ``ctypes``).
 """
@@ -47,6 +59,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: kernel launches made by :func:`fused_embrace` (one per CUDA call)
 LAUNCHES = 0
+#: kernel launches made by :func:`fused_embrace_fulle`
+LAUNCHES_FULLE = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
@@ -95,11 +109,11 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        fn = lib.embrace_fused_fwd
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [i32, p, i64, p, i64, p, i64, p, i64,
-                       p, p, p, p, p, p, i32, i32, i32, i32, ctypes.c_uint, p]
-        fn.restype = i32
+        for fn in (lib.embrace_fused_fwd, lib.embrace_fused_fwd_fulle):
+            fn.argtypes = [i32, p, i64, p, i64, p, i64, p, i64, p, p, p, p,
+                           p, p, i32, i32, i32, i32, ctypes.c_uint, p, p]
+            fn.restype = i32
         _lib = lib
     return _lib
 
@@ -117,7 +131,7 @@ def fused_embrace_reference(x0, x1, w0, b0, w1, b1, p0, e_mask, u):
     return torch.where(pick0, d0, d1) * e_mask, pick0.to(torch.uint8)
 
 
-def _check(x0, x1, w0, b0, w1, b1, p0, e_mask):
+def _check(x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
     dev = x0.device
     b, d0 = x0.shape
     d1, e = x1.shape[1], w0.shape[1]
@@ -147,20 +161,18 @@ def _check(x0, x1, w0, b0, w1, b1, p0, e_mask):
         if t.shape[1] > 1 and t.stride(1) != 1:
             raise ValueError(f"fused_embrace: {name} needs unit stride "
                              f"along its last axis")
+    if isinstance(seed, torch.Tensor):
+        if seed.shape != () or seed.dtype != torch.int64 or seed.device != dev:
+            raise ValueError(f"fused_embrace: a tensor seed must be a 0-d "
+                             f"int64 on {dev}, got {seed.dtype} "
+                             f"{tuple(seed.shape)} on {seed.device}")
 
 
-def fused_embrace(x0, x1, w0, b0, w1, b1, p0, e_mask, seed: int):
-    """Fused docking + stochastic embracement -> ``(out [B, E] float32,
-    choose [B, E] uint8)``.
-
-    x0 [B, D0], x1 [B, D1]; w0 [D0, E], w1 [D1, E] (float32 or bfloat16,
-    all four alike; the weights may be row-strided views); b0, b1, e_mask
-    [E] and p0 [B] float32 (p0 = probability of modality 0 per row); seed
-    an int.  CUDA tensors go to the kernel; CPU tensors to the plain
-    version with uniforms from ``torch.Generator().manual_seed(seed)``.
-    """
-    global LAUNCHES
-    _check(x0, x1, w0, b0, w1, b1, p0, e_mask)
+def _forward(entry: str, x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
+    """``(out, choose)`` from the kernel ``entry`` on a CUDA tensor, or from
+    the plain version with ``torch.Generator().manual_seed(seed)``
+    uniforms on a CPU tensor."""
+    _check(x0, x1, w0, b0, w1, b1, p0, e_mask, seed)
     b, e = x0.shape[0], w0.shape[1]
     if x0.device.type == "cpu":
         gen = torch.Generator().manual_seed(int(seed))
@@ -171,17 +183,97 @@ def fused_embrace(x0, x1, w0, b0, w1, b1, p0, e_mask, seed: int):
     lib = _load()
     out = torch.empty((b, e), dtype=torch.float32, device=x0.device)
     choose = torch.empty((b, e), dtype=torch.uint8, device=x0.device)
+    if isinstance(seed, torch.Tensor):
+        seed_val, seed_ptr = 0, seed.data_ptr()
+    else:
+        seed_val, seed_ptr = int(seed) & 0xFFFFFFFF, None
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream(x0.device).cuda_stream
-        err = lib.embrace_fused_fwd(
+        err = getattr(lib, entry)(
             _DTYPE_CODE[x0.dtype],
             x0.data_ptr(), x0.stride(0), x1.data_ptr(), x1.stride(0),
             w0.data_ptr(), w0.stride(0), w1.data_ptr(), w1.stride(0),
             b0.data_ptr(), b1.data_ptr(), p0.data_ptr(), e_mask.data_ptr(),
             out.data_ptr(), choose.data_ptr(),
-            b, x0.shape[1], x1.shape[1], e, int(seed) & 0xFFFFFFFF, stream)
+            b, x0.shape[1], x1.shape[1], e, seed_val, seed_ptr, stream)
     if err != 0:
-        raise RuntimeError(f"fused_embrace: CUDA launch failed with error "
-                           f"{err} ({torch.cuda.get_device_name(x0.device)})")
-    LAUNCHES += 1
+        raise RuntimeError(f"{entry}: CUDA launch failed with error {err} "
+                           f"({torch.cuda.get_device_name(x0.device)})")
+    return out, choose
+
+
+def embrace_backward(g, x0, x1, w0, w1, e_mask, choose, out):
+    """The JAX ``_bwd`` (``ops/pallas/embrace.py:251-271``) term for term,
+    in float32 from the saved operands: ``(dx0, dx1, dw0, db0, dw1, db1)``.
+    ``out > 0`` is ReLU's derivative on the selected branch."""
+    from embracenet_tpu_torch.models.layers import _highest_matmul_precision
+
+    g = g.float() * e_mask[None, :]
+    live = (out > 0).float()
+    c = choose.float()
+    g0 = g * c * live
+    g1 = g * (1.0 - c) * live
+    with _highest_matmul_precision():
+        dx0 = g0 @ w0.float().T
+        dw0 = x0.float().T @ g0
+        dx1 = g1 @ w1.float().T
+        dw1 = x1.float().T @ g1
+    return dx0, dx1, dw0, g0.sum(0), dw1, g1.sum(0)
+
+
+class FusedEmbrace(torch.autograd.Function):
+    """Fused docking + embracement with the JAX custom VJP's gradient.  On
+    both devices the backward is :func:`embrace_backward`; no gradient
+    flows to ``p0``, ``e_mask`` or ``seed`` (the draw is not
+    differentiated).  Each returned gradient has its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
+        global LAUNCHES
+        out, choose = _forward("embrace_fused_fwd", x0, x1, w0, b0, w1, b1,
+                               p0, e_mask, seed)
+        if out.is_cuda:
+            LAUNCHES += 1
+        ctx.save_for_backward(x0, x1, w0, w1, e_mask, choose, out)
+        ctx.mark_non_differentiable(choose)
+        return out, choose
+
+    @staticmethod
+    def backward(ctx, g, _g_choose):
+        x0, x1, w0, w1, e_mask, choose, out = ctx.saved_tensors
+        dx0, dx1, dw0, db0, dw1, db1 = embrace_backward(g, x0, x1, w0, w1,
+                                                        e_mask, choose, out)
+        return (dx0.to(x0.dtype), dx1.to(x1.dtype), dw0.to(w0.dtype), db0,
+                dw1.to(w1.dtype), db1, None, None, None)
+
+
+def fused_embrace(x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
+    """Fused docking + stochastic embracement -> ``(out [B, E] float32,
+    choose [B, E] uint8)``, differentiable in x0, x1, w0, b0, w1, b1.
+
+    x0 [B, D0], x1 [B, D1]; w0 [D0, E], w1 [D1, E] (float32 or bfloat16,
+    all four alike; the weights may be row-strided views, and their
+    gradients land in the viewed slice of the base tensor); b0, b1, e_mask
+    [E] and p0 [B] float32 (p0 = probability of modality 0 per row); seed
+    an int or a 0-d int64 tensor on the operands' device.  CUDA tensors go
+    to the kernel; CPU tensors to the plain version with uniforms from
+    ``torch.Generator().manual_seed(seed)``.
+    """
+    return FusedEmbrace.apply(x0, x1, w0, b0, w1, b1, p0, e_mask, seed)
+
+
+def fused_embrace_fulle(x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
+    """The full-E kernel: :func:`fused_embrace`'s forward with one block per
+    8 rows and the whole E width, so ``x1`` is read once.  Forward only, as
+    the JAX ``_fused_fwd_fulle``: it raises where autograd would need a
+    gradient of it, instead of returning an output that trains nothing."""
+    global LAUNCHES_FULLE
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x0, x1, w0, b0, w1, b1)):
+        raise RuntimeError("fused_embrace_fulle is forward only; use "
+                           "fused_embrace for a differentiable call")
+    out, choose = _forward("embrace_fused_fwd_fulle", x0, x1, w0, b0, w1, b1,
+                           p0, e_mask, seed)
+    if out.is_cuda:
+        LAUNCHES_FULLE += 1
     return out, choose

@@ -68,10 +68,10 @@ def auprc_prob(scores, target, mask=None):
     precision = tp_cum / torch.clamp(pp_cum, min=1.0)
     recall = tp_cum / torch.clamp(n_pos, min=1.0)
     s_sorted = s[order]
-    next_s = torch.cat([s_sorted[1:], torch.full((1,), neg_inf)])
+    next_s = torch.cat([s_sorted[1:], torch.full((1,), neg_inf, device=s.device)])
     is_boundary = (s_sorted != next_s) & (m_sorted > 0)
     r_at_bounds = torch.where(is_boundary, recall, torch.zeros_like(recall))
-    r_prev_bound = torch.cat([torch.zeros(1),
+    r_prev_bound = torch.cat([torch.zeros(1, device=s.device),
                               torch.cummax(r_at_bounds, 0).values[:-1]])
     contrib = torch.where(is_boundary, precision * (recall - r_prev_bound),
                           torch.zeros_like(recall))
@@ -89,8 +89,8 @@ def auroc(scores, target, mask=None):
     n = s.shape[0]
     order = torch.argsort(s, stable=True)
     s_sorted = s[order]
-    pos = torch.arange(n, dtype=torch.float32)
-    nan = torch.full((1,), float("nan"))
+    pos = torch.arange(n, dtype=torch.float32, device=s.device)
+    nan = torch.full((1,), float("nan"), device=s.device)
     is_run_start = s_sorted != torch.cat([nan, s_sorted[:-1]])
     run_first = torch.cummax(torch.where(is_run_start, pos, torch.full_like(pos, -1.0)),
                              0).values

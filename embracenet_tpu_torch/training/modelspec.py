@@ -2,8 +2,9 @@
 ``embracenet_tpu/training/modelspec.py``).
 
 ``apply`` takes ``seed`` (an int that seeds the forward's random draws) in
-place of the JAX package's PRNG key; everything else keeps the JAX calling
-convention.
+place of the JAX package's PRNG key, and ``init_from_fans`` a
+``torch.Generator`` in place of ``init_traced``'s key; everything else keeps
+the JAX calling convention.
 """
 
 from __future__ import annotations
@@ -34,6 +35,10 @@ class ModelSpec:
     apply: Callable        # (params, bn_state, hp, inputs, train, seed,
     #                         row_mask, compute_dtype, statics) -> (logits, bn)
     statics: Callable = None   # hp_list -> dict of static shape knobs
+    fan_ins: Callable = None   # hp_concrete -> fan-in tree (numpy)
+    init_from_fans: Callable = None  # (generator, fans) -> (params, bn_state):
+    #                                  a population inits trial by trial from
+    #                                  per-trial generators (engine.fit)
 
 
 def _cnn_statics(hp_list, key="cnn"):
@@ -100,7 +105,10 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
             return logits, bn_state
 
         return ModelSpec(model, ("ffnn",), init, apply,
-                         lambda hps: {"ffnn_max_width": _ffnn_width(hps, key=None)})
+                         lambda hps: {"ffnn_max_width": _ffnn_width(hps, key=None)},
+                         fan_ins=lambda hp: ffnn.fan_ins(hp, in_features_ffnn),
+                         init_from_fans=lambda gen, fans: (
+                             ffnn.init_from_fans(gen, fans, in_features_ffnn), {}))
 
     if model == "CNN":
         def apply(params, bn_state, hp, inputs, train, seed, row_mask,
@@ -115,7 +123,8 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
                              max_kernels=st.get("cnn_max_kernels"))
 
         return ModelSpec(model, ("cnn",), cnn.init, apply,
-                         lambda hps: _cnn_statics(hps, key=None))
+                         lambda hps: _cnn_statics(hps, key=None),
+                         fan_ins=cnn.fan_ins, init_from_fans=cnn.init_from_fans)
 
     if model == "EmbraceNetMultimodal":
         def init(generator, hp):
@@ -143,7 +152,10 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
             out["post_max"] = _post_width(hps, "post_widths")
             return out
 
-        return ModelSpec(model, ("ffnn", "cnn"), init, apply, statics)
+        return ModelSpec(model, ("ffnn", "cnn"), init, apply, statics,
+                         fan_ins=lambda hp: embracenet.fan_ins(hp, in_features_ffnn),
+                         init_from_fans=lambda gen, fans: embracenet.init_from_fans(
+                             gen, fans, in_features_ffnn))
 
     if model in _NOT_PORTED:
         raise NotImplementedError(f"{model} is not ported to PyTorch yet: "

@@ -157,10 +157,17 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, names in os.walk(os.path.join(REPO, "embracenet_tpu_torch")):
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tools", "torch_embrace_bench.py"),
+             os.path.join(REPO, "tools", "torch_serve_profile.py")]
+    for root, dirs, names in os.walk(os.path.join(REPO, "embracenet_tpu_torch")):
+        dirs[:] = [d for d in dirs if d != "_build"]  # build outputs, not source
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) > 15
+    assert len(files) > 20
+    names = {os.path.relpath(f, REPO) for f in files}
+    assert {"embracenet_tpu_torch/training/engine.py",
+            "embracenet_tpu_torch/benchkit.py",
+            "embracenet_tpu_torch/ops/optim.py"} <= names
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -36,7 +35,8 @@ from torch.profiler import ProfilerActivity, profile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
-from chip_smoke import IN_FEATURES, widest_flat_params  # noqa: E402
+from embracenet_tpu_torch.benchkit import (IN_FEATURES, nvidia_smi,  # noqa: E402
+                                           widest_flat_params)
 from embracenet_tpu_torch.hpo import space  # noqa: E402
 from embracenet_tpu_torch.models import embracenet  # noqa: E402
 from embracenet_tpu_torch.models.reload import load_model  # noqa: E402
@@ -74,9 +74,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_serve_profile: needs a CUDA card", file=sys.stderr)
         return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
+    card = nvidia_smi()
     rng = np.random.default_rng(0)
     data = {"ffnn": rng.normal(size=(N_WINDOWS, IN_FEATURES)).astype(np.float32),
             "cnn": rng.integers(0, 4, size=(N_WINDOWS, 256), dtype=np.uint8)}
