@@ -9,17 +9,29 @@ without them.  It
    with nvcc for sm_90a and prints the build time and ptxas' report;
 2. kernel phase: holds the kernel against its plain PyTorch version at the
    serving path's shape (B=4096, D0=256, D1=7936, E=1024), at a ragged
-   shape (B=100, D0=200, D1=5568, E=768 with e_mask live on 512) and at the
+   shape (B=100, D0=200, D1=5568, E=768 with e_mask live on 512), at the
    train phase's shapes (B=100 and, for evaluation, B=200, with D0=256,
-   D1=7936, E=1024), in float32 and bf16 operands: p0 = 1 and p0 = 0 give the plain version's
-   d0 / d1, a per-row p0 spread over [0, 1] gives exactly
-   ``where(choose, d0, d1)`` (tolerance: float32 rtol = atol = 1e-4, the
-   K-sum taken in another order; bf16 1e-2 against the plain version on the
-   same bf16 operands), each row's choose frequency lies within 0.01 of its
-   p0, masked columns are exactly 0, and a seed repeats bit for bit while
-   the next seed differs.  It times kernel and plain version with CUDA
-   events (no single PyTorch call computes this function, so there is no
-   library time: ``library_ms`` is null);
+   D1=7936, E=1024), at the bench phase's (B=800 and 2048, which
+   ``engine_bench`` drives, and 1024, on unsplit 64-row tiles) and at
+   three edge shapes (B=1, D0=4, D1=1024, E=512:
+   x0 padded for TMA in bf16; B=63, D0=16, D1=3200, E=768; B=65, D0=64,
+   D1=1000, E=768: ragged K; B straddles the 64-row tile), in float32 and
+   bf16 operands: p0 = 1 and p0 = 0 give the plain version's d0 / d1, a
+   per-row p0 spread over [0, 1] gives exactly ``where(choose, d0, d1)``
+   (tolerance: float32 rtol = atol = 1e-4, the K-sum taken in another
+   order; bf16 1e-2 against the plain version on the same bf16 operands),
+   the full-E kernel chooses exactly as the tiled one, each row's choose
+   frequency lies within 0.01 of its p0, masked columns are exactly 0, and
+   a seed repeats bit for bit while the next seed differs.  It prints the
+   launch plan (tile, cluster split, CTAs, clusters the card holds at
+   once) and times, with CUDA events, the kernel and the plain version
+   (``ms``, ``plain_ms``: through the Python wrapper, eagerly, as a
+   training step calls them; ``device_ms``, ``plain_device_ms``: device
+   time of 20 calls replayed from a CUDA graph, without the host's time)
+   and ``products_ms``, the device time of the two docking products alone
+   through ``torch.matmul`` in the operand type (a yardstick the port
+   never calls).  No single PyTorch call computes this
+   function, so there is no library time: ``library_ms`` is null;
 3. serve phase: builds the widest EmbraceNetMultimodal of the search space
    (FFNN 256/128/64/32, CNN 64/96/256/512 with 15-tap kernels, embracement
    1024, post layers 512/256, 566 tabular features as HEPG2) from a seeded
@@ -68,12 +80,13 @@ import torch
 
 import embracenet_tpu_torch as et
 from embracenet_tpu_torch.benchkit import (IN_FEATURES, bound, cuda_ms,
-                                           make_data, nvidia_smi,
+                                           graph_ms, make_data, nvidia_smi,
                                            widest_flat_params)
 from embracenet_tpu_torch.config import TrainConfig
 from embracenet_tpu_torch.convert import tree_to_numpy
 from embracenet_tpu_torch.hpo import space
 from embracenet_tpu_torch.models import embracenet
+from embracenet_tpu_torch.models.layers import _highest_matmul_precision
 from embracenet_tpu_torch.models.reload import load_model
 from embracenet_tpu_torch.ops import embrace as K
 from embracenet_tpu_torch.training import engine
@@ -92,6 +105,16 @@ RAGGED = dict(B=100, D0=200, D1=5568, E=768, live=512)
 TRAIN = dict(B=100, D0=256, D1=7936, E=1024, live=1024)
 EVAL = dict(B=200, D0=256, D1=7936, E=1024, live=1024)
 SHAPES = (MAIN, RAGGED, TRAIN, EVAL)
+# the bench phase's engine_bench batches (batch_size 1024: balanced train
+# batches of 800 and an eval batch of 2048) and a batch of 1024: unsplit
+# 64-row tiles
+BENCH = tuple(dict(B=b, D0=256, D1=7936, E=1024, live=1024)
+              for b in (800, 1024, 2048))
+# edge shapes of the tiled kernel: x0 rows of 8 bytes in bf16 (padded for
+# TMA), B around the 64-row tile, ragged K
+EDGES = (dict(B=1, D0=4, D1=1024, E=512, live=512),
+         dict(B=63, D0=16, D1=3200, E=768, live=768),
+         dict(B=65, D0=64, D1=1000, E=768, live=640))
 N_WINDOWS = 10_000
 N_REQUESTS = 3
 
@@ -134,7 +157,7 @@ def kernel_case(shape, dtype, dev, gen):
     torch.testing.assert_close(out, d1, rtol=tol, atol=tol)
     require(bool((ch == 0).all()), "p0 = 0 must never choose modality 0")
 
-    p0 = torch.linspace(0, 1, B, device=dev)
+    p0 = spread_p0(B, dev)
     out, ch = K.fused_embrace(*args, p0, e_mask, 7)
     want = torch.where(ch.bool(), d0, d1)
     torch.testing.assert_close(out, want, rtol=tol, atol=tol)
@@ -145,6 +168,9 @@ def kernel_case(shape, dtype, dev, gen):
             "the same seed must repeat bit for bit")
     _, ch_next = K.fused_embrace(*args, p0, e_mask, 8)
     require(not torch.equal(ch, ch_next), "seed + 1 must draw anew")
+    _, ch_fulle = K.fused_embrace_fulle(*args, p0, e_mask, 7)
+    require(torch.equal(ch, ch_fulle),
+            "the full-E kernel must choose as fused_embrace for the same seed")
 
     seeds = 128 if B > 1000 else 256
     hits = torch.zeros(B, device=dev)
@@ -154,16 +180,40 @@ def kernel_case(shape, dtype, dev, gen):
     require(freq_err < 0.01, f"choose frequency off p0 by {freq_err}")
 
     u = torch.rand(B, E, generator=gen, device=dev)
+    x0, x1, w0, _, w1, _ = args
+
+    def products():
+        with _highest_matmul_precision():
+            return x0 @ w0, x1 @ w1
+
+    plan = K.card_plan(B, E, D0, D1, dtype, torch.cuda.current_device())
     ms = cuda_ms(lambda: K.fused_embrace(*args, p0, e_mask, 3))
+    device_ms = graph_ms(lambda: K.fused_embrace(*args, p0, e_mask, 3))
     plain_ms = cuda_ms(lambda: K.fused_embrace_reference(*args, p0, e_mask, u))
+    plain_device_ms = graph_ms(
+        lambda: K.fused_embrace_reference(*args, p0, e_mask, u))
+    products_ms = graph_ms(products)
     bound_ms, bound_by, flops, nbytes = bound(B, D0, D1, E, dtype)
     return {"shape": [B, D0, D1, E], "dtype": str(dtype).split(".")[-1],
+            "plan": {"tile": [plan.bm, plan.bn], "split": plan.split,
+                     "ctas": plan.ctas,
+                     "clusters_at_once": K.clusters_at_once(dtype, plan.bm,
+                                                            plan.split)},
             "max_abs_err": max_err, "freq_err": freq_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-            "tflops": flops / ms / 1e9,
+            "device_ms": device_ms, "plain_ms": plain_ms,
+            "plain_device_ms": plain_device_ms,
+            "products_ms": products_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            "tflops": flops / device_ms / 1e9,
             "library_ms": None, "library": "none: no single PyTorch call "
             "docks two modalities and selects between them"}
+
+
+def spread_p0(B, dev):
+    """Per-row p0 spread over [0, 1] (0.5 for a single row)."""
+    if B == 1:
+        return torch.full((1,), 0.5, device=dev)
+    return torch.linspace(0, 1, B, device=dev)
 
 
 def fulle_case(shape, dtype, dev, gen):
@@ -408,12 +458,12 @@ def main() -> int:
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "nvcc_s": K.BUILD_SECONDS}), flush=True)
     for line in K.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("ptxas:", line.strip(), flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     cases, fulle_cases = [], []
-    for shape in SHAPES:
+    for shape in SHAPES + BENCH + EDGES:
         for dtype in (torch.float32, torch.bfloat16):
             case = kernel_case(shape, dtype, dev, gen)
             cases.append(case)

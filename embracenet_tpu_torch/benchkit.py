@@ -1,6 +1,7 @@
 """What the card-side scripts share: the H100 peak rates and the fused
-forward's bound, CUDA-event timing, the card's ``nvidia-smi`` line, and the
-widest model and learnable data they drive.
+forward's bound, CUDA-event timing (eager, and of a replayed CUDA
+graph), the card's ``nvidia-smi`` line, and the widest model and
+learnable data they drive.
 
 Used by ``chip_smoke.py``, ``tools/torch_embrace_bench.py`` and
 ``tools/torch_serve_profile.py``; nothing in the training or serving path
@@ -43,6 +44,28 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def graph_ms(fn, iters=20, warmup=3) -> float:
+    """Mean device ms per call of ``fn``: ``iters`` calls captured in one
+    CUDA graph and replayed, timed with CUDA events, so the host's time
+    between launches does not count."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters

@@ -13,26 +13,61 @@
 //   out[r, c]    = (choose ? d0 : d1) * e_mask[c] (float32)
 // The [B, E] docking activations never reach device memory.
 //
-// Bound at the serving path's shape (B = 4096 rows per micro-batch, D0 = 256,
-// D1 = 7936 = cnn.FLAT_MAX, E = 1024):
-//   operations 2 * B * (D0 + D1) * E = 68.7 GFLOP;
-//   bytes, each input read once and each output written once, ~189 MB in
-//   float32 (x1 130 MB, w1 32.5 MB, out 16.8 MB, the rest small);
-//   so the float32 path is bound by CUDA-core FP32 (67 TFLOP/s on an H100
-//   SXM, ~1.0 ms) and the bf16 path by the tensor cores (989 TFLOP/s,
-//   ~0.07 ms); memory alone would take ~0.06 ms.
+// Bound.  Operations 2 * B * (D0 + D1) * E; bytes, each input read once and
+// each output written once: x0, x1, w0, w1 in the operand type, out float32,
+// choose uint8.  At the serving shape (B = 4096, D0 = 256, D1 = 7936 =
+// cnn.FLAT_MAX, E = 1024) that is 68.7 GFLOP and ~189 MB in float32: bound
+// by CUDA-core FP32 (67 TFLOP/s on an H100 SXM, 1.03 ms); with bf16
+// operands ~110 MB, bound by the tensor cores (989 TFLOP/s, 0.07 ms).  At
+// the training batch (B = 100 or 200, same widths) the float32 call is
+// still bound by operations (0.025 / 0.050 ms) and the bf16 call by the
+// 16 MB of w1 (~0.006 ms).
 //
-// Design.  This first version is a simple tiled FMA kernel, right before
-// fast: one block per 128 x 64 output tile, a K loop inside the block in
-// place of the TPU grid's sequential k axis (Hopper blocks run in no order,
-// so nothing carries between blocks), x and w tiles staged through shared
-// memory with the next tile's global loads issued before the current tile's
-// FMAs, and two float32 accumulators (x1 @ w1, then x0 @ w0) of 8 x 4
-// outputs per thread.  Operands are float (compute_dtype None) or bf16
-// (converted to float on load; products and sums in float32).  The weights
-// take a row stride, so sliced views w[:D, :E] need no copy; ragged B, K and
-// E edges are masked here, with no padding in the wrapper.  wgmma tensor
-// core products fed by TMA are later work.
+// What bound the first design (a CUDA-core FMA kernel, one block
+// per 128 x 64 output tile, one register-staged prefetch of a 16-deep K
+// tile): bf16 operands were converted to float on load, so they ran at the
+// float32 rate (2.8 ms against 0.07 ms); at B = 100 it launched 16 blocks
+// on 132 SMs, each walking all of K = 7936 alone; and its float32 mainloop
+// reached 39 % of the FP32 peak.
+//
+// This design:
+//   * bf16 operands: wgmma.mma_async m64n128k16 with float32 accumulators
+//     in registers, one consumer warpgroup per 64 rows of a 64 x 128 or
+//     128 x 128 output tile, one group of products kept in flight.  A (x
+//     tile) is K-major, B (w tile) MN-major: w is [D, E] row-major, so the
+//     transpose bit is set and a k step of 16 advances the B descriptor by
+//     16 rows.
+//   * float32 operands stay in full float32 on the CUDA cores (the
+//     reference multiplies at Precision.HIGHEST; TF32 would keep ~3
+//     digits): 8 x 8 outputs a thread, 256 threads on a 128 x 128 tile, or
+//     two groups of 128 threads on a 64 x 128 tile that take alternate
+//     stages of the ring (so 8 warps compute where the training batches
+//     leave one CTA an SM); float4 shared-memory reads free of bank
+//     conflicts (x rows arrive 128B-swizzled, w rows linear).
+//   * Both types: a ring of 3 (bf16 64-row tiles) or 4 shared-memory
+//     stages filled by TMA (cp.async.bulk.tensor.2d), one producer warp,
+//     mbarriers for full and empty stages.  TMA's out-of-bounds zero fill
+//     takes the ragged B, K and E edges; the weights' row stride goes into
+//     the tensor map, so the model's dock*_w[:D, :E] views need no copy.
+//     x0 @ w0 runs first through the same ring and registers; its sums are
+//     parked in shared memory while x1 @ w1 takes the registers.
+//   * Split K across a thread-block cluster of `split` CTAs (1 to 8, chosen
+//     by ops/embrace.py::launch_plan) when the output tiles alone would
+//     leave most of the 132 SMs idle, as at B = 100: the K tiles of x0 @ w0
+//     and then of x1 @ w1 form one list, CTA rank q takes its q-th
+//     contiguous share, keeps its partial sums in its own shared memory,
+//     and after a cluster barrier each rank adds one slice of the tile's
+//     sums over ranks 0, 1, ..., split - 1 (and groups), in that order,
+//     through distributed shared memory, and runs the epilogue on that
+//     slice: once per element, no atomics.  A cluster's CTAs must share one
+//     GPC, so the plan asks CUDA how many clusters fit at once and keeps
+//     the grid to one wave (bf16 64-row tiles fit twice on an SM: 30
+//     clusters of 8; float32 ones once: 15 of 8 but 17 of 6 on an H100).
+//   * The epilogue (bias, ReLU, the draw, the select, e_mask) runs on the
+//     accumulator's fragment layout and writes out and choose.
+// Sums are taken in a fixed order for a given launch plan, so a seed
+// repeats bit for bit; the plan depends only on the shapes, the operand
+// type and the card, so the same call on the same card repeats too.
 //
 // The seed comes by value or, where the caller drew it on the device (a
 // training step draws it from the step's torch.Generator), through a
@@ -44,19 +79,15 @@
 // (reached there through _fused_fwd_fulle): the same function, blocked so
 // that one block owns BM rows and the whole E width.
 
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+namespace cg = cooperative_groups;
 
-constexpr int BM = 128;      // rows of the output tile
-constexpr int BN = 64;       // features of the output tile
-constexpr int BK = 16;       // K depth of one staged tile
-constexpr int TM = 8;        // rows per thread
-constexpr int TN = 4;        // features per thread
-constexpr int THREADS = 256; // (BM / TM) * (BN / TN)
-constexpr int A_PAD = 4;     // keeps float4 reads aligned, eases store conflicts
+namespace {
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -88,126 +119,424 @@ __device__ __forceinline__ float draw_u(uint32_t key, int r, int c) {
   return (float)(bits >> 8) * (1.0f / 16777216.0f);
 }
 
-// Global -> registers for one BK step.  A tile: BM rows x BK of x, each
-// thread 8 consecutive k of one row.  B tile: BK rows x BN of w, each thread
-// 4 consecutive features of one row.
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ x, int64_t ldx,
-                                          const T* __restrict__ w, int64_t ldw,
-                                          int row0, int col0, int k0, int B,
-                                          int K, int E, float a[8], float b[4]) {
-  const int tid = threadIdx.x;
-  const int ar = row0 + (tid >> 1);
-  const int ak = k0 + ((tid & 1) << 3);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    a[j] = (ar < B && ak + j < K) ? to_float(x[(int64_t)ar * ldx + ak + j]) : 0.f;
-  }
-  const int bk = k0 + (tid >> 4);
-  const int bc = col0 + ((tid & 15) << 2);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    b[j] = (bk < K && bc + j < E) ? to_float(w[(int64_t)bk * ldw + bc + j]) : 0.f;
+// ---------------------------------------------------------------------------
+// PTX: shared-memory addresses, mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// arrive once and expect `bytes` more from TMA before the phase completes
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed; a phase that never
+// completes (a lost copy) traps after ~2e10 cycles instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > 20000000000ll) __trap();
   }
 }
 
-__device__ __forceinline__ void store_tile(float (*As)[BM + A_PAD],
-                                           float (*Bs)[BN], const float a[8],
-                                           const float b[4]) {
-  const int tid = threadIdx.x;
-  const int ar = tid >> 1, ak = (tid & 1) << 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) As[ak + j][ar] = a[j];
-  const int bk = tid >> 4, bc = (tid & 15) << 2;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) Bs[bk][bc + j] = b[j];
+// one 2-D box of `map` at (c0 = column, c1 = row) into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
 }
 
-// acc[TM][TN] += x[row0:row0+BM, :K] @ w[:K, col0:col0+BN] (this thread's part)
-template <typename T>
-__device__ __forceinline__ void tile_product(float acc[TM][TN],
-                                             const T* __restrict__ x, int64_t ldx,
-                                             const T* __restrict__ w, int64_t ldw,
-                                             int row0, int col0, int B, int K,
-                                             int E, float (*As)[BM + A_PAD],
-                                             float (*Bs)[BN]) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float a[8], b[4];
-  if (K > 0) load_tile(x, ldx, w, ldw, row0, col0, 0, B, K, E, a, b);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    store_tile(As, Bs, a, b);
-    __syncthreads();
-    if (k0 + BK < K) load_tile(x, ldx, w, ldw, row0, col0, k0 + BK, B, K, E, a, b);
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence_operands(float (&d)[64]) {
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a_lo = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 a_hi = *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float av[TM] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w,
-                            a_hi.x, a_hi.y, a_hi.z, a_hi.w};
-      const float bw[TN] = {bv.x, bv.y, bv.z, bv.w};
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] += A[64 x 16] (K-major) * B[16 x 128] (MN-major), bf16 in,
+// float32 accumulators in the warpgroup's fragment layout
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// Tile shapes and mainloops.  A stage holds an A tile (BM rows x BK of x,
+// K-major, 128B-swizzled: each row is 128 bytes) and a B tile (BK rows x BN
+// features of w, loaded as BN / BOX_N boxes of BOX_N features).
+// ---------------------------------------------------------------------------
+
+// bf16 operands: WG consumer warpgroups, 64 rows each, wgmma
+template <int WG>
+struct Bf16Tiles {
+  using T = __nv_bfloat16;
+  static constexpr CUtensorMapDataType DT = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // 64-row tiles: 3 stages and <= 112 registers, so that two CTAs fit on
+  // an SM and 30 clusters of 8 fit at once
+  static constexpr int BM = 64 * WG, BN = 128, BK = 64, STAGES = WG == 1 ? 3 : 4;
+  static constexpr int MIN_CTAS = WG == 1 ? 2 : 1;
+  static constexpr int CONSUMERS = 128 * WG;
+  static constexpr int GROUPS = 1;  // consumer groups splitting the CTA's K tiles
+  static constexpr int LAG = 1;  // a stage is free once the next one's wgmma runs
+  static constexpr int NACC = 64;   // accumulators a thread, per product
+  static constexpr int BOX_N = 64;  // 128 bytes: the swizzle span
+  static constexpr CUtensorMapSwizzle W_SWIZZLE = CU_TENSOR_MAP_SWIZZLE_128B;
+  static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BK * BN * 2;
+
+  // issue this stage's products; on return the previous stage's are done
+  __device__ static void mma(float (&acc)[NACC], const uint8_t* a,
+                             const uint8_t* b, int tid) {
+    const uint32_t sa = smem_u32(a) + (tid / 128) * 64 * BK * 2;
+    const uint32_t sb = smem_u32(b);
+    wgmma_fence_operands(acc);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // A: +32 bytes along the swizzled row; B: +16 rows of 128 bytes.
+      // A's 8-row groups lie 1024 bytes apart; B's 8-row K groups too, and
+      // its two 64-feature boxes BOX_N * BK * 2 bytes apart.
+      wgmma_m64n128k16(acc, wgmma_desc(sa + kk * 32, 16, 1024),
+                       wgmma_desc(sb + kk * 16 * 128, BOX_N * BK * 2, 1024));
     }
-    __syncthreads();
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
   }
-}
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-embrace_fused_fwd_kernel(const T* __restrict__ x0, int64_t ld_x0,
-                         const T* __restrict__ x1, int64_t ld_x1,
-                         const T* __restrict__ w0, int64_t ld_w0,
-                         const T* __restrict__ w1, int64_t ld_w1,
-                         const float* __restrict__ b0,
-                         const float* __restrict__ b1,
-                         const float* __restrict__ p0,
-                         const float* __restrict__ e_mask,
-                         float* __restrict__ out, uint8_t* __restrict__ choose,
-                         int B, int D0, int D1, int E, uint32_t seed,
-                         const long long* __restrict__ seed_dev) {
-  __shared__ __align__(16) float As[BK][BM + A_PAD];
-  __shared__ __align__(16) float Bs[BK][BN];
-  const uint32_t key = seed_dev ? (uint32_t)(*seed_dev) : seed;
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
+  // wait for every product issued: acc holds the sums
+  __device__ static void drain(float (&acc)[NACC]) {
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    wgmma_fence_operands(acc);
+  }
 
-  float acc1[TM][TN], acc0[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc1[i][j] = acc0[i][j] = 0.f;
+  // element i of consumer thread tid -> (row, feature) in the tile
+  __device__ static void coords(int i, int tid, int& r, int& c) {
+    const int t = tid & 127, l = t & 31;
+    r = (tid >> 7) * 64 + (t >> 5) * 16 + (l >> 2) + 8 * ((i >> 1) & 1);
+    c = (i >> 2) * 8 + (l & 3) * 2 + (i & 1);
+  }
+};
 
-  tile_product(acc1, x1, ld_x1, w1, ld_w1, row0, col0, B, D1, E, As, Bs);
-  tile_product(acc0, x0, ld_x0, w0, ld_w0, row0, col0, B, D0, E, As, Bs);
+// float32 operands: G groups of GT consumer threads, 8 x 8 outputs a
+// thread, FFMA.  Thread (ty, tx) of a group, ty < GT / 16, owns rows
+// ty + (GT / 16) i and features tx * 4 + j, 64 + tx * 4 + j: a warp reads
+// two rows of A (different swizzle phases) and 16 consecutive float4 of B,
+// so no read conflicts.  The groups take alternate stages of the ring, so
+// each sums its own share of the CTA's K tiles and a CTA runs G times the
+// warps its tile alone would give: 2 groups of 128 threads on a 64-row
+// tile (8 consumer warps where the training batches leave one CTA an SM),
+// 1 group of 256 on a 128-row tile.
+template <int GT, int G = 1>
+struct F32Tiles {
+  using T = float;
+  static constexpr CUtensorMapDataType DT = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  static constexpr int RS = GT / 16;  // row stride of a thread's rows
+  static constexpr int BM = 8 * RS, BN = 128, BK = 32;
+  static constexpr int STAGES = 4;
+  static constexpr int MIN_CTAS = 1;
+  static constexpr int CONSUMERS = GT * G;
+  static constexpr int GROUPS = G;
+  static constexpr int LAG = 0;  // the FMAs are done when mma returns
+  static constexpr int NACC = 64;
+  static constexpr int BOX_N = 128;
+  static constexpr CUtensorMapSwizzle W_SWIZZLE = CU_TENSOR_MAP_SWIZZLE_NONE;
+  static constexpr int A_BYTES = BM * BK * 4, B_BYTES = BK * BN * 4;
 
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  __device__ static void mma(float (&acc)[NACC], const uint8_t* a,
+                             const uint8_t* b, int tid) {
+    const int lane = tid & 31, tx = lane & 15, ty = (tid >> 5) * 2 + (lane >> 4);
+    const float* bs = reinterpret_cast<const float*>(b) + tx * 4;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty * TM + i;
-    if (r >= B) continue;
-    const float pr = p0[r];
+    for (int kq = 0; kq < BK / 4; ++kq) {
+      float av[8][4];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx * TN + j;
-      if (c >= E) continue;
-      const float d0 = fmaxf(acc0[i][j] + b0[c], 0.f);
-      const float d1 = fmaxf(acc1[i][j] + b1[c], 0.f);
-      const bool pick0 = draw_u(key, r, c) < pr;
-      out[(int64_t)r * E + c] = (pick0 ? d0 : d1) * e_mask[c];
-      choose[(int64_t)r * E + c] = pick0 ? 1 : 0;
+      for (int i = 0; i < 8; ++i) {
+        // 16-byte chunk kq of row ty + RS i sits at chunk kq ^ (row % 8)
+        const float4 v = *reinterpret_cast<const float4*>(
+            a + (ty + RS * i) * 128 + ((kq ^ (ty & 7)) << 4));
+        av[i][0] = v.x, av[i][1] = v.y, av[i][2] = v.z, av[i][3] = v.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 lo = *reinterpret_cast<const float4*>(bs + (kq * 4 + kk) * BN);
+        const float4 hi = *reinterpret_cast<const float4*>(bs + (kq * 4 + kk) * BN + 64);
+        const float bw[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i * 8 + j] = fmaf(av[i][kk], bw[j], acc[i * 8 + j]);
+      }
     }
   }
+
+  __device__ static void drain(float (&)[NACC]) {}
+
+  __device__ static void coords(int i, int tid, int& r, int& c) {
+    const int lane = tid & 31, tx = lane & 15, ty = (tid >> 5) * 2 + (lane >> 4);
+    const int j = i & 7;
+    r = ty + RS * (i >> 3);
+    c = (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
+  }
+};
+
+struct Epilogue {
+  const float* b0;
+  const float* b1;
+  const float* p0;
+  const float* e_mask;
+  float* out;
+  uint8_t* choose;
+  int B, E;
+  uint32_t seed;
+  const long long* seed_dev;
+};
+
+__device__ __forceinline__ void finish(const Epilogue& ep, uint32_t key, int r,
+                                       int c, float a0, float a1) {
+  if (r >= ep.B || c >= ep.E) return;
+  const float d0 = fmaxf(a0 + ep.b0[c], 0.f);
+  const float d1 = fmaxf(a1 + ep.b1[c], 0.f);
+  const bool pick0 = draw_u(key, r, c) < ep.p0[r];
+  const int64_t at = (int64_t)r * ep.E + c;
+  ep.out[at] = (pick0 ? d0 : d1) * ep.e_mask[c];
+  ep.choose[at] = pick0 ? 1 : 0;
+}
+
+// Shared memory: the ring; then the park, where rank 0 keeps its x0 @ w0
+// sums while the same registers take x1 @ w1.  A thread's sums lie at
+// [i * CONSUMERS + t] (element i of thread t), in the park and, after the
+// mainloop, in the part of the ring that takes the x1 @ w1 partial sums of
+// a split K.  Then the mbarriers, and slack to align the ring to the 1024
+// bytes of the 128B swizzle pattern.
+template <class Cfg>
+__host__ __device__ constexpr int sums_bytes() {
+  return Cfg::NACC * Cfg::CONSUMERS * 4;
+}
+template <class Cfg>
+__host__ __device__ constexpr int park_offset() {
+  return Cfg::STAGES * (Cfg::A_BYTES + Cfg::B_BYTES) > sums_bytes<Cfg>()
+             ? Cfg::STAGES * (Cfg::A_BYTES + Cfg::B_BYTES)
+             : sums_bytes<Cfg>();
+}
+template <class Cfg>
+__host__ __device__ constexpr int smem_bytes() {
+  return park_offset<Cfg>() + sums_bytes<Cfg>() + 2 * Cfg::STAGES * 8 + 1024;
+}
+
+// Grid (split, ceil(E / BN), ceil(B / BM)), clusters of (split, 1, 1):
+// blockIdx.x is the CTA's rank in its cluster.  CONSUMERS threads compute;
+// the warp after them issues the TMA loads.
+template <class Cfg>
+__global__ void __launch_bounds__(Cfg::CONSUMERS + 32, Cfg::MIN_CTAS)
+embrace_fused_fwd_kernel(const __grid_constant__ CUtensorMap map_x0,
+                         const __grid_constant__ CUtensorMap map_w0,
+                         const __grid_constant__ CUtensorMap map_x1,
+                         const __grid_constant__ CUtensorMap map_w1,
+                         const Epilogue ep, int k0_tiles, int k1_tiles) {
+  constexpr int C = Cfg::CONSUMERS, NACC = Cfg::NACC, STAGES = Cfg::STAGES;
+  constexpr int G = Cfg::GROUPS, GT = C / G;
+  constexpr int STAGE_BYTES = Cfg::A_BYTES + Cfg::B_BYTES;
+  constexpr int BOX_BYTES = Cfg::BOX_N * Cfg::BK * (int)sizeof(typename Cfg::T);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  float* park = reinterpret_cast<float*>(smem + park_offset<Cfg>());
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + park_offset<Cfg>() +
+                                               sums_bytes<Cfg>());
+  uint64_t* empty = full + STAGES;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  const int col0 = blockIdx.y * Cfg::BN, row0 = blockIdx.z * Cfg::BM;
+  // The K tiles of x0 @ w0, then those of x1 @ w1, go to the ranks in
+  // contiguous shares of one list: rank q takes list tiles [lo, hi), the
+  // first n0 of them of x0 @ w0.
+  const int lo = rank * (k0_tiles + k1_tiles) / split;
+  const int hi = (rank + 1) * (k0_tiles + k1_tiles) / split;
+  const int n0 = max(0, min(hi, k0_tiles) - lo);
+  const int n = hi - lo;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C / Cfg::GROUPS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+
+  if (tid >= C) {
+    if (tid == C) {  // producer: one lane keeps the ring filled
+      for (int t = 0; t < n; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
+        uint8_t* a = smem + s * STAGE_BYTES;
+        uint8_t* b = a + Cfg::A_BYTES;
+        const bool first = t < n0;
+        const CUtensorMap* mx = first ? &map_x0 : &map_x1;
+        const CUtensorMap* mw = first ? &map_w0 : &map_w1;
+        const int k = (lo + t - (first ? 0 : k0_tiles)) * Cfg::BK;
+        mbar_expect_tx(&full[s], STAGE_BYTES);
+        tma_load(a, mx, &full[s], k, row0);
+#pragma unroll
+        for (int h = 0; h < Cfg::BN / Cfg::BOX_N; ++h)
+          tma_load(b + h * BOX_BYTES, mw, &full[s], col0 + h * Cfg::BOX_N, k);
+      }
+    }
+    __syncwarp();
+  } else {
+    // group g takes tiles g, g + G, ...; a group without an x0 @ w0 tile
+    // parks zeros
+    const int g = tid / GT, gt = tid % GT;
+    if (g >= n0) {
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) park[i * C + tid] = 0.f;
+    }
+    for (int t = g; t < n; t += G) {
+      const int s = t % STAGES;
+      mbar_wait(&full[s], (t / STAGES) & 1);
+      const uint8_t* a = smem + s * STAGE_BYTES;
+      Cfg::mma(acc, a, a + Cfg::A_BYTES, gt);
+      if (t < n0 && t + G >= n0) {  // x0 @ w0's share done: park it
+        Cfg::drain(acc);
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) {
+          park[i * C + tid] = acc[i];
+          acc[i] = 0.f;
+        }
+      }
+      const int done = t - Cfg::LAG * G;  // the stage whose products are done
+      if (done >= 0) {
+        __syncwarp();
+        if ((tid & 31) == 0) mbar_arrive(&empty[done % STAGES]);
+      }
+    }
+    Cfg::drain(acc);
+  }
+
+  const uint32_t key = ep.seed_dev ? (uint32_t)(*ep.seed_dev) : ep.seed;
+  if (split == 1 && G == 1) {
+    if (tid < C) {
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) {
+        int r, c;
+        Cfg::coords(i, tid, r, c);
+        finish(ep, key, row0 + r, col0 + c, park[i * C + tid], acc[i]);
+      }
+    }
+    return;
+  }
+
+  // Split K (across the cluster's ranks, the CTA's groups, or both): the
+  // x1 @ w1 partial sums go to the start of the ring, free once every CTA
+  // of the cluster has passed the first barrier.  Rank q then finishes
+  // elements [q * NACC / split, (q + 1) * NACC / split) of every group
+  // thread, group g of the rank taking every G-th of them, adding the
+  // partial sums in (rank, group) order: x1 @ w1's from every rank, x0 @
+  // w0's from the parks of the ranks that took x0 tiles.
+  float* part = reinterpret_cast<float*>(smem);
+  cluster.sync();
+  if (tid < C) {
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) part[i * C + tid] = acc[i];
+  }
+  cluster.sync();
+  if (tid < C) {
+    const int g = tid / GT, gt = tid % GT;
+    for (int i = rank * NACC / split + g; i < (rank + 1) * NACC / split; i += G) {
+      float a0 = 0.f, a1 = 0.f;
+      for (int q = 0; q < split; ++q) {
+        const bool x0_share = q * (k0_tiles + k1_tiles) / split < k0_tiles;
+        const float* pk = cluster.map_shared_rank(park, q);
+        const float* pt = cluster.map_shared_rank(part, q);
+        for (int h = 0; h < G; ++h) {
+          if (x0_share) a0 += pk[i * C + h * GT + gt];
+          a1 += pt[i * C + h * GT + gt];
+        }
+      }
+      int r, c;
+      Cfg::coords(i, gt, r, c);
+      finish(ep, key, row0 + r, col0 + c, a0, a1);
+    }
+  }
+  cluster.sync();  // no CTA leaves while another reads its shared memory
 }
 
 // ---------------------------------------------------------------------------
 // Full-E blocking: replaces embracenet_tpu/ops/pallas/embrace.py::_kernel_fulle.
 //
 // The TPU kernel keeps a 256-row x E f32 accumulator in VMEM so that x1
-// streams from memory once (the tiled kernel above re-reads each x1 row
-// once per 64-feature tile, E / 64 = 16 times at E = 1024).  A Hopper block
+// streams from memory once (a kernel tiled over E re-reads each x1 row once
+// per feature tile).  A Hopper block
 // cannot hold 256 x 1024 accumulators, so here one block owns BM = 8 rows
 // and all of E (in passes of 1024 features), with the sums in registers:
 // thread t owns features e0 + t + 256 j (j < 4) of all 8 rows, 2 x 32
@@ -218,10 +547,11 @@ embrace_fused_fwd_kernel(const T* __restrict__ x0, int64_t ld_x0,
 // memory, coalesced across the warp, and every block reads all of w1
 // (L2-resident at these sizes: 32.5 MB float32, 16 MB bf16).
 //
-// Sums run over k in order with fmaf from 0, as in the tiled kernel, and
-// the draw is the same Philox(seed, row, feature), so both kernels give
-// the same out and choose bit for bit for the same seed.  The TPU reseeded
-// its PRNG per B-block (seed + i), so its two kernels drew differently.
+// The draw is the same Philox(seed, row, feature) as the tiled kernel's,
+// so both kernels choose identically, bit for bit, for the same seed; out
+// agrees within rounding (1e-4 float32, 1e-2 bf16), because the tiled
+// kernel sums K in another order (wgmma, split K).  The TPU reseeded its
+// PRNG per B-block (seed + i), so its two kernels drew differently.
 //
 // Occupancy: ceil(B / 8) blocks, 13 at B = 100, where 132 SMs are
 // available; 512 at B = 4096.  Bound as the tiled kernel's (operations in
@@ -324,70 +654,213 @@ embrace_fulle_kernel(const T* __restrict__ x0, int64_t ld_x0,
 
 }  // namespace fulle
 
-template <typename T, bool FULLE>
-cudaError_t launch(const void* x0, int64_t ld_x0, const void* x1, int64_t ld_x1,
-                   const void* w0, int64_t ld_w0, const void* w1, int64_t ld_w1,
-                   const float* b0, const float* b1, const float* p0,
-                   const float* e_mask, float* out, uint8_t* choose, int B,
-                   int D0, int D1, int E, uint32_t seed,
-                   const long long* seed_dev, cudaStream_t stream) {
-  const T* tx0 = static_cast<const T*>(x0);
-  const T* tx1 = static_cast<const T*>(x1);
-  const T* tw0 = static_cast<const T*>(w0);
-  const T* tw1 = static_cast<const T*>(w1);
-  if constexpr (FULLE) {
-    const dim3 grid((B + fulle::BM - 1) / fulle::BM);
-    fulle::embrace_fulle_kernel<T><<<grid, fulle::THREADS, 0, stream>>>(
-        tx0, ld_x0, tx1, ld_x1, tw0, ld_w0, tw1, ld_w1, b0, b1, p0, e_mask,
-        out, choose, B, D0, D1, E, seed, seed_dev);
-  } else {
-    const dim3 grid((B + BM - 1) / BM, (E + BN - 1) / BN);
-    embrace_fused_fwd_kernel<T><<<grid, THREADS, 0, stream>>>(
-        tx0, ld_x0, tx1, ld_x1, tw0, ld_w0, tw1, ld_w1, b0, b1, p0, e_mask,
-        out, choose, B, D0, D1, E, seed, seed_dev);
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: it is
+// looked up through the runtime's entry-point query, so the library needs
+// no link against libcuda
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
+}
+
+// a [rows, cols] matrix with row stride ld (elements), read in boxes of
+// box_rows x box_cols; out-of-bounds elements read as zero
+bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType dt,
+              int item, long long rows, long long cols, long long ld,
+              int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  // a single row's stride is never used, but must be a multiple of 16 bytes
+  const cuuint64_t stride =
+      rows > 1 ? (cuuint64_t)ld * item : (((cuuint64_t)cols * item + 15) / 16) * 16;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {stride};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encoder()(map, dt, 2, const_cast<void*>(base), dims, strides, box,
+                   elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The launch configuration of one plan: grid, block, shared memory, cluster
+// dims.  Also lifts the kernel's shared-memory limit, once per device.
+template <class Cfg>
+cudaError_t launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                          int B, int E, int split, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<Cfg>();
+  static unsigned long long lifted = 0;  // one bit per device
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (!(lifted >> device & 1)) {
+    err = cudaFuncSetAttribute(embrace_fused_fwd_kernel<Cfg>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    lifted |= 1ull << device;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(split, (E + Cfg::BN - 1) / Cfg::BN, (B + Cfg::BM - 1) / Cfg::BM);
+  cfg->blockDim = dim3(Cfg::CONSUMERS + 32);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <class Cfg>
+int launch_tiled(const void* x0, long long ld_x0, const void* x1,
+                 long long ld_x1, const void* w0, long long ld_w0,
+                 const void* w1, long long ld_w1, const Epilogue& ep, int D0,
+                 int D1, int split, cudaStream_t stream) {
+  constexpr int item = (int)sizeof(typename Cfg::T);
+  if (!encoder()) return (int)cudaErrorNotSupported;
+  CUtensorMap mx0, mw0, mx1, mw1;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!make_map(&mx0, x0, Cfg::DT, item, ep.B, D0, ld_x0, Cfg::BK, Cfg::BM, sw) ||
+      !make_map(&mx1, x1, Cfg::DT, item, ep.B, D1, ld_x1, Cfg::BK, Cfg::BM, sw) ||
+      !make_map(&mw0, w0, Cfg::DT, item, D0, ep.E, ld_w0, Cfg::BOX_N, Cfg::BK,
+                Cfg::W_SWIZZLE) ||
+      !make_map(&mw1, w1, Cfg::DT, item, D1, ep.E, ld_w1, Cfg::BOX_N, Cfg::BK,
+                Cfg::W_SWIZZLE))
+    return (int)cudaErrorInvalidValue;
+
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  const cudaError_t err = launch_config<Cfg>(&cfg, attr, ep.B, ep.E, split, stream);
+  if (err != cudaSuccess) return (int)err;
+  const int k0_tiles = (D0 + Cfg::BK - 1) / Cfg::BK;
+  const int k1_tiles = (D1 + Cfg::BK - 1) / Cfg::BK;
+  return (int)cudaLaunchKernelEx(&cfg, embrace_fused_fwd_kernel<Cfg>, mx0, mw0, mx1, mw1, ep, k0_tiles,
+                                 k1_tiles);
+}
+
+template <typename T>
+cudaError_t launch_fulle(const void* x0, int64_t ld_x0, const void* x1,
+                         int64_t ld_x1, const void* w0, int64_t ld_w0,
+                         const void* w1, int64_t ld_w1, const float* b0,
+                         const float* b1, const float* p0,
+                         const float* e_mask, float* out, uint8_t* choose,
+                         int B, int D0, int D1, int E, uint32_t seed,
+                         const long long* seed_dev, cudaStream_t stream) {
+  const dim3 grid((B + fulle::BM - 1) / fulle::BM);
+  fulle::embrace_fulle_kernel<T><<<grid, fulle::THREADS, 0, stream>>>(
+      static_cast<const T*>(x0), ld_x0, static_cast<const T*>(x1), ld_x1,
+      static_cast<const T*>(w0), ld_w0, static_cast<const T*>(w1), ld_w1, b0,
+      b1, p0, e_mask, out, choose, B, D0, D1, E, seed, seed_dev);
   return cudaGetLastError();
 }
 
-template <bool FULLE>
-int dispatch(int dtype, const void* x0, long long ld_x0, const void* x1,
-             long long ld_x1, const void* w0, long long ld_w0, const void* w1,
-             long long ld_w1, const float* b0, const float* b1,
-             const float* p0, const float* e_mask, float* out,
-             uint8_t* choose, int B, int D0, int D1, int E, unsigned int seed,
-             const long long* seed_dev, void* stream) {
-  if (B <= 0 || E <= 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch<float, FULLE>(x0, ld_x0, x1, ld_x1, w0, ld_w0, w1,
-                                     ld_w1, b0, b1, p0, e_mask, out, choose,
-                                     B, D0, D1, E, seed, seed_dev, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16, FULLE>(x0, ld_x0, x1, ld_x1, w0, ld_w0,
-                                             w1, ld_w1, b0, b1, p0, e_mask,
-                                             out, choose, B, D0, D1, E, seed,
-                                             seed_dev, s);
-  return (int)cudaErrorInvalidValue;
+// f(Cfg{}) for the tile configuration of operand type `dtype` (0 = float32,
+// 1 = bf16) and `bm` rows, or `bad` where there is none
+template <class F>
+int with_tiles(int dtype, int bm, int bad, F f) {
+  if (dtype == 1 && bm == 64) return f(Bf16Tiles<1>{});
+  if (dtype == 1 && bm == 128) return f(Bf16Tiles<2>{});
+  if (dtype == 0 && bm == 64) return f(F32Tiles<128, 2>{});
+  if (dtype == 0 && bm == 128) return f(F32Tiles<256>{});
+  return bad;
 }
 
 }  // namespace
 
-// dtype: 0 = float32 operands, 1 = bfloat16 operands.  seed_dev: null, or a
-// device pointer to one int64 whose low 32 bits replace `seed`.  Returns the
-// CUDA error code of the launch (0 = success); a bad dtype returns
-// cudaErrorInvalidValue.  Launches on `stream` and does not synchronise.
-#define EMBRACE_ENTRY(NAME, FULLE)                                            \
-  extern "C" int NAME(int dtype, const void* x0, long long ld_x0,             \
-                      const void* x1, long long ld_x1, const void* w0,        \
-                      long long ld_w0, const void* w1, long long ld_w1,       \
-                      const float* b0, const float* b1, const float* p0,      \
-                      const float* e_mask, float* out, uint8_t* choose,       \
-                      int B, int D0, int D1, int E, unsigned int seed,        \
-                      const long long* seed_dev, void* stream) {              \
-    return dispatch<FULLE>(dtype, x0, ld_x0, x1, ld_x1, w0, ld_w0, w1, ld_w1, \
-                           b0, b1, p0, e_mask, out, choose, B, D0, D1, E,     \
-                           seed, seed_dev, stream);                           \
-  }
+// The two launch entries, embrace_fused_fwd and embrace_fused_fwd_fulle:
+// dtype 0 = float32 operands, 1 = bfloat16 operands.
+// seed_dev: null, or a device pointer to one int64 whose low 32 bits replace
+// `seed`.  Return the CUDA error code of the launch (0 = success); a bad
+// argument returns cudaErrorInvalidValue.  They launch on `stream` and do
+// not synchronise.
+//
+// embrace_fused_fwd also takes the launch plan of ops/embrace.py::
+// launch_plan: bm, the rows of an output tile (64 or 128), and split, the
+// CTAs of a cluster that share one tile's K (1 to 8).  Every operand's
+// base must be 16-byte aligned and every row stride (ld * element size) a
+// multiple of 16 bytes where it has more than one row: TMA reads them.
+extern "C" int embrace_fused_fwd(int dtype, const void* x0, long long ld_x0,
+                                 const void* x1, long long ld_x1,
+                                 const void* w0, long long ld_w0,
+                                 const void* w1, long long ld_w1,
+                                 const float* b0, const float* b1,
+                                 const float* p0, const float* e_mask,
+                                 float* out, uint8_t* choose, int B, int D0,
+                                 int D1, int E, unsigned int seed,
+                                 const long long* seed_dev, void* stream,
+                                 int bm, int split) {
+  if (B <= 0 || E <= 0) return (int)cudaSuccess;
+  if (D0 <= 0 || D1 <= 0 || split < 1 || split > 8)
+    return (int)cudaErrorInvalidValue;
+  const Epilogue ep{b0, b1, p0, e_mask, out, choose, B, E, seed, seed_dev};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_tiles(dtype, bm, (int)cudaErrorInvalidValue, [&](auto tiles) {
+    return launch_tiled<decltype(tiles)>(x0, ld_x0, x1, ld_x1, w0, ld_w0, w1,
+                                         ld_w1, ep, D0, D1, split, s);
+  });
+}
 
-EMBRACE_ENTRY(embrace_fused_fwd, false)
-EMBRACE_ENTRY(embrace_fused_fwd_fulle, true)
+// How many clusters of one plan fit on the card at once
+// (cudaOccupancyMaxActiveClusters), or -1 on an error: with split CTAs a
+// cluster, fewer than ctas / split means the grid runs in more than one
+// wave.
+extern "C" int embrace_fused_fwd_clusters(int dtype, int B, int E, int bm,
+                                          int split) {
+  return with_tiles(dtype, bm, -1, [&](auto tiles) {
+    using Cfg = decltype(tiles);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    int clusters = -1;
+    if (launch_config<Cfg>(&cfg, attr, B, E, split, 0) != cudaSuccess ||
+        cudaOccupancyMaxActiveClusters(&clusters, embrace_fused_fwd_kernel<Cfg>,
+                                       &cfg) != cudaSuccess)
+      return -1;
+    return clusters;
+  });
+}
+
+extern "C" int embrace_fused_fwd_fulle(int dtype, const void* x0,
+                                       long long ld_x0, const void* x1,
+                                       long long ld_x1, const void* w0,
+                                       long long ld_w0, const void* w1,
+                                       long long ld_w1, const float* b0,
+                                       const float* b1, const float* p0,
+                                       const float* e_mask, float* out,
+                                       uint8_t* choose, int B, int D0, int D1,
+                                       int E, unsigned int seed,
+                                       const long long* seed_dev,
+                                       void* stream) {
+  if (B <= 0 || E <= 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_fulle<float>(x0, ld_x0, x1, ld_x1, w0, ld_w0, w1, ld_w1,
+                                    b0, b1, p0, e_mask, out, choose, B, D0, D1,
+                                    E, seed, seed_dev, s);
+  if (dtype == 1)
+    return (int)launch_fulle<__nv_bfloat16>(x0, ld_x0, x1, ld_x1, w0, ld_w0, w1,
+                                            ld_w1, b0, b1, p0, e_mask, out,
+                                            choose, B, D0, D1, E, seed,
+                                            seed_dev, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -9,14 +9,18 @@ activations never reach device memory.
 
 * :func:`fused_embrace` is differentiable (:class:`FusedEmbrace`, the
   counterpart of the JAX custom VJP).  Its forward is the tiled kernel on a
-  CUDA tensor and :func:`fused_embrace_reference` with uniforms from a
-  ``torch.Generator`` seeded with ``seed`` on a CPU tensor; its backward is
-  the JAX ``_bwd``: three masked products in float32, which JAX left to XLA
-  and which stay ``torch.matmul`` (cuBLAS on the card) here.
+  CUDA tensor (TMA-fed ``wgmma`` for bf16 operands, a float32 FMA mainloop
+  for float32 ones, K split across a thread-block cluster where the output
+  tiles alone would leave the card idle: :func:`launch_plan`) and
+  :func:`fused_embrace_reference` with uniforms from a ``torch.Generator``
+  seeded with ``seed`` on a CPU tensor; its backward is the JAX ``_bwd``:
+  masked products in float32, which JAX left to XLA and which stay
+  ``torch.matmul`` (cuBLAS on the card) here.
 * :func:`fused_embrace_fulle` is the full-E kernel, forward only as in JAX.
   It computes the same function and draws the same Philox stream, so for
-  the same seed both kernels choose identically (the TPU reseeded per
-  B-block, ``seed + i``, so its two kernels did not).
+  the same seed both kernels choose identically, bit for bit (the TPU
+  reseeded per B-block, ``seed + i``, so its two kernels did not); ``out``
+  agrees within rounding, because the two kernels sum K in another order.
 * :func:`fused_embrace_reference` is the plain PyTorch version with the
   uniforms ``u`` given: the tests and ``chip_smoke.py`` hold both kernels
   against it.
@@ -33,6 +37,13 @@ wrapper always cast them to bfloat16.
 kernels read a tensor seed from device memory, so a seed drawn on the card
 never waits for the host.
 
+The tiled kernel reads its operands with TMA, which needs each base
+16-byte aligned and each row stride a multiple of 16 bytes
+(:func:`tma_problem`).  The model's operands meet this, except x0 with a
+row of 4 bf16 values (the FFNN's narrowest last layer): :func:`tma_x0`
+copies that small ``[B, D0]`` tensor into a zero-padded one.  Any other
+operand TMA cannot read raises ``ValueError``; none is copied silently.
+
 The kernels are built at first use with ``nvcc`` for ``sm_90a`` into
 ``embracenet_tpu_torch/_build/`` (a shared library with a plain C
 interface, loaded with ``ctypes``).
@@ -47,7 +58,9 @@ import shutil
 import subprocess
 import tempfile
 import time
+from functools import lru_cache
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -110,9 +123,13 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        common = [i32, p, i64, p, i64, p, i64, p, i64, p, p, p, p, p, p,
+                  i32, i32, i32, i32, ctypes.c_uint, p, p]
+        lib.embrace_fused_fwd.argtypes = common + [i32, i32]   # bm, split
+        lib.embrace_fused_fwd_fulle.argtypes = common
+        lib.embrace_fused_fwd_clusters.argtypes = [i32] * 5
+        lib.embrace_fused_fwd_clusters.restype = i32
         for fn in (lib.embrace_fused_fwd, lib.embrace_fused_fwd_fulle):
-            fn.argtypes = [i32, p, i64, p, i64, p, i64, p, i64, p, p, p, p,
-                           p, p, i32, i32, i32, i32, ctypes.c_uint, p, p]
             fn.restype = i32
         _lib = lib
     return _lib
@@ -168,6 +185,116 @@ def _check(x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
                              f"{tuple(seed.shape)} on {seed.device}")
 
 
+#: features of an output tile of the tiled kernel
+TILE_N = 128
+#: K depth of a staged tile: 128 bytes of an x row in either operand type
+TILE_K = {torch.float32: 32, torch.bfloat16: 64}
+#: the largest portable thread-block cluster
+MAX_SPLIT = 8
+
+
+class LaunchPlan(NamedTuple):
+    """How the tiled kernel covers one call: output tiles of ``bm`` rows x
+    ``bn`` features, each computed by a cluster of ``split`` CTAs that
+    share its K tiles (the kernel cuts them into ``split`` shares).  The
+    kernel receives ``bm`` and ``split``; the rest is for the reader."""
+    bm: int
+    bn: int
+    split: int
+    row_tiles: int
+    col_tiles: int
+
+    @property
+    def ctas(self) -> int:
+        return self.row_tiles * self.col_tiles * self.split
+
+
+def launch_plan(B, E, D0, D1, dtype, sm_count, clusters=None) -> LaunchPlan:
+    """The tiled kernel's plan for a call on a card with ``sm_count`` SMs.
+
+    Tiles have 128 rows where 128-row tiles alone fill the SMs (the serving
+    batch of 4096), else 64.  ``split`` is the largest, at most
+    :data:`MAX_SPLIT` and at most x1's K tiles, that keeps one CTA an SM
+    (tiles x split <= sm_count) and the grid in one wave: a cluster's CTAs
+    share one GPC, so ``clusters(bm, split)`` says how many clusters of that
+    size the card holds at once (:func:`clusters_at_once` on the card;
+    ``sm_count // split`` where it is not given).  With that default, B =
+    100 and B = 200 at E = 1024 split 8 and 4 ways: 128 CTAs."""
+    fits = clusters or (lambda bm, split: sm_count // split)
+    col_tiles = -(-E // TILE_N)
+    bm = 128 if -(-B // 128) * col_tiles >= sm_count else 64
+    row_tiles = -(-B // bm)
+    tiles = row_tiles * col_tiles
+    k1_tiles = -(-D1 // TILE_K[dtype])
+    split = next((s for s in range(min(MAX_SPLIT, k1_tiles), 1, -1)
+                  if tiles * s <= sm_count and tiles <= fits(bm, s)), 1)
+    return LaunchPlan(bm, TILE_N, split, row_tiles, col_tiles)
+
+
+@lru_cache(maxsize=None)
+def clusters_at_once(dtype, bm, split, index=None) -> int:
+    """How many clusters of ``split`` CTAs of ``bm``-row tiles the card
+    (CUDA device ``index``, the current one by default) holds at once:
+    CUDA's occupancy query, which knows how the SMs fall into GPCs.
+    Raises ``RuntimeError`` where the query fails."""
+    with torch.cuda.device(index):
+        n = _load().embrace_fused_fwd_clusters(_DTYPE_CODE[dtype], bm,
+                                               TILE_N, bm, split)
+    if n < 0:
+        raise RuntimeError(f"embrace_fused_fwd_clusters: the occupancy query "
+                           f"failed for {dtype} {bm}-row tiles split {split} "
+                           f"ways on CUDA device {index}")
+    return n
+
+
+@lru_cache(maxsize=None)
+def card_plan(B, E, D0, D1, dtype, index) -> LaunchPlan:
+    """:func:`launch_plan` for CUDA device ``index``, from its SM count and
+    its occupancy query; the wrapper's plan."""
+    return launch_plan(
+        B, E, D0, D1, dtype,
+        torch.cuda.get_device_properties(index).multi_processor_count,
+        lambda bm, split: clusters_at_once(dtype, bm, split, index))
+
+
+def tma_problem(shape, strides, itemsize, address):
+    """Why TMA cannot read a 2-D operand with this ``shape``, ``strides``
+    (elements), element size and base address; ``None`` where it can.  TMA
+    needs unit stride along the last axis, a 16-byte aligned base, and, for
+    more than one row, a row stride that covers the row and is a multiple
+    of 16 bytes."""
+    rows, cols = shape
+    if cols > 1 and strides[1] != 1:
+        return "needs unit stride along its last axis"
+    if address % 16:
+        return f"base address {address:#x} is not 16-byte aligned"
+    if rows > 1 and (strides[0] * itemsize % 16 or strides[0] < cols):
+        return (f"row stride of {strides[0] * itemsize} bytes is not a "
+                f"multiple of 16 bytes covering its {cols} columns")
+    return None
+
+
+def tma_x0(x0):
+    """``x0`` as TMA can read it: itself, or where its row stride is not a
+    multiple of 16 bytes (D0 = 4 with bf16 operands) a copy zero-padded to
+    the next multiple.  The kernel reads D0 columns of it and w0's D0 rows,
+    so the padding never enters a sum."""
+    per = 16 // x0.element_size()
+    if x0.shape[0] <= 1 or x0.stride(0) % per == 0:
+        return x0
+    padded = x0.new_zeros(x0.shape[0], -(-x0.shape[1] // per) * per)
+    padded[:, :x0.shape[1]] = x0
+    return padded
+
+
+def _check_tma(x0, x1, w0, w1):
+    for name, t in (("x0", x0), ("x1", x1), ("w0", w0), ("w1", w1)):
+        why = tma_problem(tuple(t.shape), t.stride(), t.element_size(),
+                          t.data_ptr())
+        if why:
+            raise ValueError(f"fused_embrace: TMA cannot read {name}: {why}")
+
+
 def _forward(entry: str, x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
     """``(out, choose)`` from the kernel ``entry`` on a CUDA tensor, or from
     the plain version with ``torch.Generator().manual_seed(seed)``
@@ -181,6 +308,13 @@ def _forward(entry: str, x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
     if x0.device.type != "cuda":
         raise ValueError(f"fused_embrace: unsupported device {x0.device}")
     lib = _load()
+    plan = ()
+    if entry == "embrace_fused_fwd":
+        x0 = tma_x0(x0)
+        _check_tma(x0, x1, w0, w1)
+        p = card_plan(b, e, w0.shape[0], x1.shape[1], x0.dtype,
+                      x0.device.index)
+        plan = (p.bm, p.split)
     out = torch.empty((b, e), dtype=torch.float32, device=x0.device)
     choose = torch.empty((b, e), dtype=torch.uint8, device=x0.device)
     if isinstance(seed, torch.Tensor):
@@ -195,7 +329,7 @@ def _forward(entry: str, x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
             w0.data_ptr(), w0.stride(0), w1.data_ptr(), w1.stride(0),
             b0.data_ptr(), b1.data_ptr(), p0.data_ptr(), e_mask.data_ptr(),
             out.data_ptr(), choose.data_ptr(),
-            b, x0.shape[1], x1.shape[1], e, seed_val, seed_ptr, stream)
+            b, w0.shape[0], x1.shape[1], e, seed_val, seed_ptr, stream, *plan)
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed with error {err} "
                            f"({torch.cuda.get_device_name(x0.device)})")

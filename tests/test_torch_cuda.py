@@ -71,6 +71,45 @@ def test_kernel_matches_plain_version(cuda, dtype):
     assert torch.equal(out, again)
 
 
+# edge shapes of the tiled kernel (B around its 64-row tile, x0 rows of 8
+# bytes in bf16, ragged K) and the main path's (training, evaluation,
+# engine_bench's batches of 800 and 2048 and a batch of 1024 on unsplit
+# 64-row tiles, serving)
+TILED_SHAPES = [(1, 4, 1024, 512), (63, 16, 3200, 768), (65, 64, 1000, 768),
+                (100, 256, 7936, 1024), (200, 256, 7936, 1024),
+                (800, 256, 7936, 1024), (1024, 256, 7936, 1024),
+                (2048, 256, 7936, 1024), (4096, 256, 7936, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d0,d1,e", TILED_SHAPES)
+def test_tiled_kernel_at_edge_and_path_shapes(cuda, b, d0, d1, e, dtype):
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    x0, x1, w0, b0, w1, b1, e_mask = _inputs(cuda, dtype, b, d0, d1, e, e - 64)
+    assert w1.stride(0) == e + 64                 # row-strided weight views
+    args = (x0, x1, w0, b0, w1, b1)
+    ones, zeros = torch.ones(b, device=cuda), torch.zeros(b, device=cuda)
+    u = torch.zeros(b, e, device=cuda)
+    d0_ref, _ = K.fused_embrace_reference(*args, ones, e_mask, u)
+    d1_ref, _ = K.fused_embrace_reference(*args, zeros, e_mask, u)
+    p0 = (torch.linspace(0, 1, b, device=cuda) if b > 1
+          else torch.full((1,), 0.5, device=cuda))
+    before = K.LAUNCHES
+    out, choose = K.fused_embrace(*args, p0, e_mask, 7)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == before + 1
+    torch.testing.assert_close(out, torch.where(choose.bool(), d0_ref, d1_ref),
+                               rtol=tol, atol=tol)
+    assert bool((out[:, e - 64:] == 0).all())
+    again, choose_again = K.fused_embrace(*args, p0, e_mask, 7)
+    assert torch.equal(out, again) and torch.equal(choose, choose_again)
+    on_card, choose_on_card = K.fused_embrace(
+        *args, p0, e_mask, torch.tensor(7, device=cuda))
+    assert torch.equal(out, on_card) and torch.equal(choose, choose_on_card)
+    _, choose_fulle = K.fused_embrace_fulle(*args, p0, e_mask, 7)
+    assert torch.equal(choose, choose_fulle)
+
+
 def test_cuda_tensor_never_falls_back(cuda):
     x0, x1, w0, b0, w1, b1, e_mask = _inputs(cuda, torch.float32)
     p0 = torch.full((x0.shape[0],), 0.5, device=cuda)
