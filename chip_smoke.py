@@ -42,9 +42,15 @@ without them.  It
    selection_probabilities_FFNN in {0, 1}, and the card against the port on
    the CPU on 64 windows;
 4. kernel-fulle phase: holds the full-E kernel (``fused_embrace_fulle``)
-   to the same checks at the same shapes, and requires its ``choose`` to
-   equal ``fused_embrace``'s bit for bit for the same seed and its ``out``
-   to match within 1e-4 (float32) / 1e-2 (bf16);
+   to the same checks at the same ten shapes in both operand types, and
+   requires its ``choose`` to equal ``fused_embrace``'s bit for bit for the
+   same seed and its ``out`` to equal it bit for bit where both plans give
+   the same tile rows and the tiled one splits no K (the same tiles in the
+   same K order), within 1e-4 (float32) / 1e-2 (bf16) elsewhere.  It
+   prints the full-E plan (tile, cluster width, CTAs, clusters the card
+   holds at once) and times it as the kernel phase does (``ms``,
+   ``device_ms``, ``plain_ms``, ``products_ms``), with the tiled kernel's
+   device time on the same inputs beside it;
 5. gradient phase: at the serving shape and at the training batch (B=100)
    in float32, the fused Function's dx0, dx1, dw0, db0, dw1, db1 equal
    autograd through the unfused path at p0 = 1 and p0 = 0 within
@@ -233,7 +239,7 @@ def fulle_case(shape, dtype, dev, gen):
     torch.testing.assert_close(out, d1, rtol=tol, atol=tol)
     require(bool((ch == 0).all()), "fulle: p0 = 0 must never choose modality 0")
 
-    p0 = torch.linspace(0, 1, B, device=dev)
+    p0 = spread_p0(B, dev)
     out, ch = K.fused_embrace_fulle(*args, p0, e_mask, 7)
     want = torch.where(ch.bool(), d0, d1)
     torch.testing.assert_close(out, want, rtol=tol, atol=tol)
@@ -244,6 +250,13 @@ def fulle_case(shape, dtype, dev, gen):
             "fulle must choose as fused_embrace for the same seed")
     torch.testing.assert_close(out, tiled, rtol=tol, atol=tol)
     vs_tiled = float((out - tiled).abs().max())
+    index = torch.cuda.current_device()
+    plan = K.card_fulle_plan(B, E, D0, D1, dtype, index)
+    tiled_plan = K.card_plan(B, E, D0, D1, dtype, index)
+    bit_equal = torch.equal(out, tiled)
+    same_tiles = plan.bm == tiled_plan.bm and tiled_plan.split == 1
+    require(bit_equal or not same_tiles, "fulle: out must equal the tiled "
+            "kernel's bit for bit where both run the same tiles in one K order")
     again, ch_again = K.fused_embrace_fulle(*args, p0, e_mask, 7)
     require(torch.equal(out, again) and torch.equal(ch, ch_again),
             "fulle: the same seed must repeat bit for bit")
@@ -255,16 +268,33 @@ def fulle_case(shape, dtype, dev, gen):
     require(freq_err < 0.01, f"fulle: choose frequency off p0 by {freq_err}")
 
     u = torch.rand(B, E, generator=gen, device=dev)
+    x0, x1, w0, _, w1, _ = args
+
+    def products():
+        with _highest_matmul_precision():
+            return x0 @ w0, x1 @ w1
+
     ms = cuda_ms(lambda: K.fused_embrace_fulle(*args, p0, e_mask, 3))
+    device_ms = graph_ms(lambda: K.fused_embrace_fulle(*args, p0, e_mask, 3))
+    tiled_device_ms = graph_ms(lambda: K.fused_embrace(*args, p0, e_mask, 3))
     plain_ms = cuda_ms(lambda: K.fused_embrace_reference(*args, p0, e_mask, u))
+    products_ms = graph_ms(products)
     bound_ms, bound_by, flops, nbytes = bound(B, D0, D1, E, dtype)
     return {"shape": [B, D0, D1, E], "dtype": str(dtype).split(".")[-1],
-            "blocks": math.ceil(B / 8), "max_abs_err": max_err,
-            "max_abs_vs_tiled": vs_tiled, "freq_err": freq_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "tflops": flops / ms / 1e9, "library_ms": None,
-            "library": "none: no single PyTorch call docks two modalities "
-            "and selects between them"}
+            "plan": {"tile": [plan.bm, plan.bn], "cluster": plan.cluster,
+                     "ctas": plan.ctas,
+                     "clusters_at_once": K.clusters_at_once(
+                         dtype, plan.bm, plan.cluster, fulle=True)},
+            "tiled_plan": {"tile": [tiled_plan.bm, tiled_plan.bn],
+                           "split": tiled_plan.split},
+            "bit_equal_to_tiled": bit_equal, "same_tiles_as_tiled": same_tiles,
+            "max_abs_err": max_err, "max_abs_vs_tiled": vs_tiled,
+            "freq_err": freq_err, "ms": ms, "device_ms": device_ms,
+            "tiled_device_ms": tiled_device_ms, "plain_ms": plain_ms,
+            "products_ms": products_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "tflops": flops / device_ms / 1e9,
+            "library_ms": None, "library": "none: no single PyTorch call "
+            "docks two modalities and selects between them"}
 
 
 def grad_phase(shape, dev, gen):
@@ -468,7 +498,7 @@ def main() -> int:
             case = kernel_case(shape, dtype, dev, gen)
             cases.append(case)
             print(json.dumps({"kernel_case": case, "card": card}), flush=True)
-    for shape in SHAPES:
+    for shape in SHAPES + BENCH + EDGES:
         for dtype in (torch.float32, torch.bfloat16):
             case = fulle_case(shape, dtype, dev, gen)
             fulle_cases.append(case)
@@ -494,7 +524,8 @@ def main() -> int:
                 "launches": launches,
                 "max_abs_err": max(c["max_abs_err"] for c in cs
                                    if c["dtype"] == "float32"),
-                "ms": main_f32["ms"], "plain_ms": main_f32["plain_ms"],
+                "ms": main_f32["ms"], "device_ms": main_f32["device_ms"],
+                "plain_ms": main_f32["plain_ms"],
                 "bound_ms": main_f32["bound_ms"], "bound_by": main_f32["bound_by"],
                 "library_ms": main_f32["library_ms"]}
 

@@ -75,9 +75,39 @@
 // never waits for the draw.  This takes the place of the TPU kernel's
 // scalar-prefetched seed.
 //
-// The second kernel, embrace_fused_fwd_fulle below, replaces _kernel_fulle
-// (reached there through _fused_fwd_fulle): the same function, blocked so
-// that one block owns BM rows and the whole E width.
+// The full-E kernel, entry embrace_fused_fwd_fulle, replaces
+// embracenet_tpu/ops/pallas/embrace.py::_kernel_fulle (reached there through
+// _fused_fwd_fulle): the same function with all of E in one block, so that
+// x1 streams once rather than once per feature tile.  A Hopper CTA cannot
+// hold a 256 x 1024 accumulator; what the TPU kernel wanted is had here by
+// a thread-block cluster that spans E.  It is the tiled kernel's own
+// mainloop and epilogue (template flag FULLE): rank q of a cluster of c
+// CTAs owns column tile cluster_index * c + q of one row tile and walks all
+// K tiles of x0 @ w0, then of x1 @ w1, in the unsplit order.  Each CTA
+// loads its own w tiles; stage t's x tile is issued once, by rank t % c,
+// as a TMA multicast into every rank's ring, so each full barrier expects
+// its w bytes plus the whole x tile.  A stage is refilled in all ranks at
+// once, so its empty barrier counts the consumer warps of every rank (lane
+// q of each warp arrives remotely on rank q's barrier); the cluster syncs
+// after the barriers' init and before any CTA leaves.
+//   What bounds it: per k step a full-E cluster loads c w tiles and one x
+// tile instead of c of each, 0.56x the tiled kernel's L2 -> SM bytes at c
+// = 8 (0.75x at c = 2).  On an H100 that buys no time: with every cluster
+// width in one wave (B = 1920, 128-row tiles) c = 8 is ~18 % slower than c
+// = 1 in bf16 and level in float32 (tools/torch_embrace_ab.py --widths).
+// Both kernels are bound inside the SM (a bf16 128 x 128 tile at about
+// half an SM's tensor peak; float32 by the FFMA mainloop's shared-memory
+// reads), and multicast adds a cost: a stage refills only once every rank
+// released it, so the slowest rank and one remote hop pace each stage.
+//   Plan (ops/embrace.py::fulle_plan): the tiled kernel's tile rows (128
+// only where 128-row tiles alone fill the SMs), and the c dividing the
+// column tiles that takes the fewest waves by CUDA's cluster occupancy
+// query, then the widest.  No split K: at B = 100 it runs 16 CTAs, each
+// walking all of K, as the TPU kernel ran one block there.
+//   Both kernels draw the same Philox stream, so they choose identically
+// for a seed; where both plans give the same tile rows and the tiled plan
+// does not split K they run the same instructions in the same K order and
+// out is equal bit for bit, elsewhere within rounding.
 
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
@@ -88,11 +118,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 __device__ __forceinline__ uint32_t philox4x32_10_word0(uint32_t seed,
                                                         uint32_t row,
@@ -146,6 +171,28 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// arrive once on the mbarrier at `bar`'s offset in the shared memory of CTA
+// `cta` of this cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// the two halves of a cluster barrier: every thread of every CTA arrives,
+// then waits for all of them
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
 // wait until the phase of parity `parity` has completed; a phase that never
 // completes (a lost copy) traps after ~2e10 cycles instead of hanging the card
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
@@ -176,6 +223,22 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// the same box into the same shared-memory offset of every CTA of the
+// cluster in `mask`; each completes its bytes on its own mbarrier at
+// `bar`'s offset
+__device__ __forceinline__ void tma_load_multicast(void* dst,
+                                                   const CUtensorMap* map,
+                                                   uint64_t* bar, int c0,
+                                                   int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask),
+      "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -386,16 +449,21 @@ __host__ __device__ constexpr int smem_bytes() {
   return park_offset<Cfg>() + sums_bytes<Cfg>() + 2 * Cfg::STAGES * 8 + 1024;
 }
 
-// Grid (split, ceil(E / BN), ceil(B / BM)), clusters of (split, 1, 1):
-// blockIdx.x is the CTA's rank in its cluster.  CONSUMERS threads compute;
-// the warp after them issues the TMA loads.
-template <class Cfg>
+// One kernel, two cluster roles.  Tiled (FULLE false): grid (split,
+// ceil(E / BN), ceil(B / BM)), clusters of (split, 1, 1) that share one
+// output tile's K.  Full-E (FULLE true): grid (1, ceil(E / BN), ceil(B /
+// BM)), clusters of (1, c, 1) that span c column tiles of one row tile;
+// every rank walks all of K in the unsplit order, loads its own w tiles,
+// and each stage's x tile reaches all c ranks by one multicast.  CONSUMERS
+// threads compute; the warp after them issues the TMA loads.
+template <class Cfg, bool FULLE>
 __global__ void __launch_bounds__(Cfg::CONSUMERS + 32, Cfg::MIN_CTAS)
 embrace_fused_fwd_kernel(const __grid_constant__ CUtensorMap map_x0,
                          const __grid_constant__ CUtensorMap map_w0,
                          const __grid_constant__ CUtensorMap map_x1,
                          const __grid_constant__ CUtensorMap map_w1,
-                         const Epilogue ep, int k0_tiles, int k1_tiles) {
+                         const Epilogue ep, int k0_tiles, int k1_tiles,
+                         int cluster_ctas, int k_split) {
   constexpr int C = Cfg::CONSUMERS, NACC = Cfg::NACC, STAGES = Cfg::STAGES;
   constexpr int G = Cfg::GROUPS, GT = C / G;
   constexpr int STAGE_BYTES = Cfg::A_BYTES + Cfg::B_BYTES;
@@ -409,26 +477,36 @@ embrace_fused_fwd_kernel(const __grid_constant__ CUtensorMap map_x0,
   uint64_t* empty = full + STAGES;
 
   cg::cluster_group cluster = cg::this_cluster();
-  const int split = (int)cluster.num_blocks();
+  // CTAs of the cluster.  The full-E kernel reads their count and its K
+  // split (1: every rank walks all of K) from its parameters: a split
+  // known at compile time lets the compiler restructure the float32
+  // consumers past the 168 registers 288 threads may hold, and spill.
+  const int ctas = FULLE ? cluster_ctas : (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
+  // the ranks that share the tile's K: the whole cluster, or (full-E) one
+  const int split = FULLE ? k_split : ctas;
+  const int kq = FULLE ? rank % k_split : rank;
   const int tid = threadIdx.x;
   const int col0 = blockIdx.y * Cfg::BN, row0 = blockIdx.z * Cfg::BM;
   // The K tiles of x0 @ w0, then those of x1 @ w1, go to the ranks in
   // contiguous shares of one list: rank q takes list tiles [lo, hi), the
   // first n0 of them of x0 @ w0.
-  const int lo = rank * (k0_tiles + k1_tiles) / split;
-  const int hi = (rank + 1) * (k0_tiles + k1_tiles) / split;
+  const int lo = kq * (k0_tiles + k1_tiles) / split;
+  const int hi = (kq + 1) * (k0_tiles + k1_tiles) / split;
   const int n0 = max(0, min(hi, k0_tiles) - lo);
   const int n = hi - lo;
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], C / Cfg::GROUPS / 32);
+      // full-E: a stage is refilled in every CTA at once (the x multicast),
+      // so it is free once the consumer warps of all ranks released it
+      mbar_init(&empty[s], C / Cfg::GROUPS / 32 * (FULLE ? ctas : 1));
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  __syncthreads();
+  if constexpr (FULLE) cluster.sync();  // every rank's barriers before any multicast
+  else __syncthreads();
 
   float acc[NACC];
 #pragma unroll
@@ -445,8 +523,12 @@ embrace_fused_fwd_kernel(const __grid_constant__ CUtensorMap map_x0,
         const CUtensorMap* mx = first ? &map_x0 : &map_x1;
         const CUtensorMap* mw = first ? &map_w0 : &map_w1;
         const int k = (lo + t - (first ? 0 : k0_tiles)) * Cfg::BK;
+        // each CTA expects the whole x tile, whichever rank issues it:
+        // full-E rank t % c, for all ranks of the cluster
         mbar_expect_tx(&full[s], STAGE_BYTES);
-        tma_load(a, mx, &full[s], k, row0);
+        if (!FULLE || ctas == 1) tma_load(a, mx, &full[s], k, row0);
+        else if (t % ctas == rank)
+          tma_load_multicast(a, mx, &full[s], k, row0, (uint16_t)((1u << ctas) - 1));
 #pragma unroll
         for (int h = 0; h < Cfg::BN / Cfg::BOX_N; ++h)
           tma_load(b + h * BOX_BYTES, mw, &full[s], col0 + h * Cfg::BOX_N, k);
@@ -477,11 +559,18 @@ embrace_fused_fwd_kernel(const __grid_constant__ CUtensorMap map_x0,
       const int done = t - Cfg::LAG * G;  // the stage whose products are done
       if (done >= 0) {
         __syncwarp();
-        if ((tid & 31) == 0) mbar_arrive(&empty[done % STAGES]);
+        if constexpr (FULLE) {  // lane q releases the stage in rank q
+          if ((tid & 31) < ctas) mbar_arrive_cluster(&empty[done % STAGES], tid & 31);
+        } else if ((tid & 31) == 0) {
+          mbar_arrive(&empty[done % STAGES]);
+        }
       }
     }
     Cfg::drain(acc);
   }
+  // full-E: this CTA neither arrives on a peer's barrier nor issues a
+  // multicast after here; it leaves only once every rank has got this far
+  if constexpr (FULLE) cluster_arrive();
 
   const uint32_t key = ep.seed_dev ? (uint32_t)(*ep.seed_dev) : ep.seed;
   if (split == 1 && G == 1) {
@@ -493,166 +582,48 @@ embrace_fused_fwd_kernel(const __grid_constant__ CUtensorMap map_x0,
         finish(ep, key, row0 + r, col0 + c, park[i * C + tid], acc[i]);
       }
     }
-    return;
-  }
-
-  // Split K (across the cluster's ranks, the CTA's groups, or both): the
-  // x1 @ w1 partial sums go to the start of the ring, free once every CTA
-  // of the cluster has passed the first barrier.  Rank q then finishes
-  // elements [q * NACC / split, (q + 1) * NACC / split) of every group
-  // thread, group g of the rank taking every G-th of them, adding the
-  // partial sums in (rank, group) order: x1 @ w1's from every rank, x0 @
-  // w0's from the parks of the ranks that took x0 tiles.
-  float* part = reinterpret_cast<float*>(smem);
-  cluster.sync();
-  if (tid < C) {
+  } else {
+    // Split K (across the cluster's ranks, the CTA's groups, or both): the
+    // x1 @ w1 partial sums go to the start of the ring, free once every CTA
+    // of the cluster has passed the first barrier.  Rank q then finishes
+    // elements [q * NACC / split, (q + 1) * NACC / split) of every group
+    // thread, group g of the rank taking every G-th of them, adding the
+    // partial sums in (rank, group) order: x1 @ w1's from every rank, x0 @
+    // w0's from the parks of the ranks that took x0 tiles.  Full-E: only
+    // the CTA's own groups, in its own shared memory.
+    float* part = reinterpret_cast<float*>(smem);
+    auto sync_sums = [&] {
+      if constexpr (FULLE) __syncthreads();
+      else cluster.sync();
+    };
+    sync_sums();
+    if (tid < C) {
 #pragma unroll
-    for (int i = 0; i < NACC; ++i) part[i * C + tid] = acc[i];
-  }
-  cluster.sync();
-  if (tid < C) {
-    const int g = tid / GT, gt = tid % GT;
-    for (int i = rank * NACC / split + g; i < (rank + 1) * NACC / split; i += G) {
-      float a0 = 0.f, a1 = 0.f;
-      for (int q = 0; q < split; ++q) {
-        const bool x0_share = q * (k0_tiles + k1_tiles) / split < k0_tiles;
-        const float* pk = cluster.map_shared_rank(park, q);
-        const float* pt = cluster.map_shared_rank(part, q);
-        for (int h = 0; h < G; ++h) {
-          if (x0_share) a0 += pk[i * C + h * GT + gt];
-          a1 += pt[i * C + h * GT + gt];
+      for (int i = 0; i < NACC; ++i) part[i * C + tid] = acc[i];
+    }
+    sync_sums();
+    if (tid < C) {
+      const int g = tid / GT, gt = tid % GT;
+      for (int i = kq * NACC / split + g; i < (kq + 1) * NACC / split; i += G) {
+        float a0 = 0.f, a1 = 0.f;
+        for (int q = 0; q < split; ++q) {
+          const bool x0_share = q * (k0_tiles + k1_tiles) / split < k0_tiles;
+          const float* pk = FULLE ? park : cluster.map_shared_rank(park, q);
+          const float* pt = FULLE ? part : cluster.map_shared_rank(part, q);
+          for (int h = 0; h < G; ++h) {
+            if (x0_share) a0 += pk[i * C + h * GT + gt];
+            a1 += pt[i * C + h * GT + gt];
+          }
         }
-      }
-      int r, c;
-      Cfg::coords(i, gt, r, c);
-      finish(ep, key, row0 + r, col0 + c, a0, a1);
-    }
-  }
-  cluster.sync();  // no CTA leaves while another reads its shared memory
-}
-
-// ---------------------------------------------------------------------------
-// Full-E blocking: replaces embracenet_tpu/ops/pallas/embrace.py::_kernel_fulle.
-//
-// The TPU kernel keeps a 256-row x E f32 accumulator in VMEM so that x1
-// streams from memory once (a kernel tiled over E re-reads each x1 row once
-// per feature tile).  A Hopper block
-// cannot hold 256 x 1024 accumulators, so here one block owns BM = 8 rows
-// and all of E (in passes of 1024 features), with the sums in registers:
-// thread t owns features e0 + t + 256 j (j < 4) of all 8 rows, 2 x 32
-// float32 accumulators (x1 @ w1, then x0 @ w0).  Each staged 8 x 32 x1 tile
-// is used for every E column before the next K step, so x1 is read from
-// memory once.  The weights are not shared between threads (each feature
-// column belongs to one thread), so they are read straight from global
-// memory, coalesced across the warp, and every block reads all of w1
-// (L2-resident at these sizes: 32.5 MB float32, 16 MB bf16).
-//
-// The draw is the same Philox(seed, row, feature) as the tiled kernel's,
-// so both kernels choose identically, bit for bit, for the same seed; out
-// agrees within rounding (1e-4 float32, 1e-2 bf16), because the tiled
-// kernel sums K in another order (wgmma, split K).  The TPU reseeded its
-// PRNG per B-block (seed + i), so its two kernels drew differently.
-//
-// Occupancy: ceil(B / 8) blocks, 13 at B = 100, where 132 SMs are
-// available; 512 at B = 4096.  Bound as the tiled kernel's (operations in
-// float32, bytes or operations in bf16 depending on B); this simple
-// version is bound in practice by the w1 stream each block reads from L2.
-// ---------------------------------------------------------------------------
-namespace fulle {
-
-constexpr int BM = 8;               // rows per block
-constexpr int THREADS = 256;
-constexpr int CPT = 4;              // features per thread in one pass
-constexpr int EC = THREADS * CPT;   // features per pass (1024)
-constexpr int BK = THREADS / BM;    // K depth of a staged x tile (32)
-
-template <typename T>
-__device__ __forceinline__ float load_x(const T* __restrict__ x, int64_t ldx,
-                                        int r, int k, int B, int K) {
-  return (r < B && k < K) ? to_float(x[(int64_t)r * ldx + k]) : 0.f;
-}
-
-// acc[i][j] = sum over k of x[row0 + i, k] * w[k, e0 + tid + j * THREADS]
-template <typename T>
-__device__ __forceinline__ void rows_product(float acc[BM][CPT],
-                                             const T* __restrict__ x,
-                                             int64_t ldx,
-                                             const T* __restrict__ w,
-                                             int64_t ldw, int row0, int e0,
-                                             int B, int K, int E,
-                                             float (*xs)[BK]) {
-  const int tid = threadIdx.x;
-  const int xr = tid / BK, xk = tid % BK;
-#pragma unroll
-  for (int i = 0; i < BM; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-  float xv = load_x(x, ldx, row0 + xr, xk, B, K);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    xs[xr][xk] = xv;
-    __syncthreads();
-    if (k0 + BK < K) xv = load_x(x, ldx, row0 + xr, k0 + BK + xk, B, K);
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      const int k = k0 + kk;
-      float wv[CPT];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = e0 + tid + j * THREADS;
-        wv[j] = (k < K && c < E) ? to_float(w[(int64_t)k * ldw + c]) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < BM; ++i) {
-        const float a = xs[i][kk];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(a, wv[j], acc[i][j]);
+        int r, c;
+        Cfg::coords(i, gt, r, c);
+        finish(ep, key, row0 + r, col0 + c, a0, a1);
       }
     }
-    __syncthreads();
+    if constexpr (!FULLE) cluster.sync();  // no CTA leaves while another reads its shared memory
   }
+  if constexpr (FULLE) cluster_wait();
 }
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-embrace_fulle_kernel(const T* __restrict__ x0, int64_t ld_x0,
-                     const T* __restrict__ x1, int64_t ld_x1,
-                     const T* __restrict__ w0, int64_t ld_w0,
-                     const T* __restrict__ w1, int64_t ld_w1,
-                     const float* __restrict__ b0,
-                     const float* __restrict__ b1,
-                     const float* __restrict__ p0,
-                     const float* __restrict__ e_mask,
-                     float* __restrict__ out, uint8_t* __restrict__ choose,
-                     int B, int D0, int D1, int E, uint32_t seed,
-                     const long long* __restrict__ seed_dev) {
-  __shared__ float xs[BM][BK];
-  const uint32_t key = seed_dev ? (uint32_t)(*seed_dev) : seed;
-  const int row0 = blockIdx.x * BM;
-  const int tid = threadIdx.x;
-  for (int e0 = 0; e0 < E; e0 += EC) {
-    float acc1[BM][CPT], acc0[BM][CPT];
-    rows_product(acc1, x1, ld_x1, w1, ld_w1, row0, e0, B, D1, E, xs);
-    rows_product(acc0, x0, ld_x0, w0, ld_w0, row0, e0, B, D0, E, xs);
-#pragma unroll
-    for (int i = 0; i < BM; ++i) {
-      const int r = row0 + i;
-      if (r >= B) break;
-      const float pr = p0[r];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = e0 + tid + j * THREADS;
-        if (c >= E) continue;
-        const float d0 = fmaxf(acc0[i][j] + b0[c], 0.f);
-        const float d1 = fmaxf(acc1[i][j] + b1[c], 0.f);
-        const bool pick0 = draw_u(key, r, c) < pr;
-        out[(int64_t)r * E + c] = (pick0 ? d0 : d1) * e_mask[c];
-        choose[(int64_t)r * E + c] = pick0 ? 1 : 0;
-      }
-    }
-  }
-}
-
-}  // namespace fulle
 
 // ---------------------------------------------------------------------------
 // Host side
@@ -703,41 +674,46 @@ bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType dt,
 }
 
 // The launch configuration of one plan: grid, block, shared memory, cluster
-// dims.  Also lifts the kernel's shared-memory limit, once per device.
-template <class Cfg>
+// dims (`cluster` CTAs: along K for the tiled kernel, along E for the
+// full-E kernel).  Also lifts the kernel's shared-memory limit, once per
+// device.
+template <class Cfg, bool FULLE>
 cudaError_t launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
-                          int B, int E, int split, cudaStream_t stream) {
+                          int B, int E, int cluster, cudaStream_t stream) {
   constexpr int smem = smem_bytes<Cfg>();
   static unsigned long long lifted = 0;  // one bit per device
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (!(lifted >> device & 1)) {
-    err = cudaFuncSetAttribute(embrace_fused_fwd_kernel<Cfg>,
+    err = cudaFuncSetAttribute(embrace_fused_fwd_kernel<Cfg, FULLE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     lifted |= 1ull << device;
   }
   *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(split, (E + Cfg::BN - 1) / Cfg::BN, (B + Cfg::BM - 1) / Cfg::BM);
+  cfg->gridDim = dim3(FULLE ? 1 : cluster, (E + Cfg::BN - 1) / Cfg::BN,
+                      (B + Cfg::BM - 1) / Cfg::BM);
   cfg->blockDim = dim3(Cfg::CONSUMERS + 32);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
-  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.x = FULLE ? 1 : cluster;
+  attr[0].val.clusterDim.y = FULLE ? cluster : 1;
   attr[0].val.clusterDim.z = 1;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
   return cudaSuccess;
 }
 
-template <class Cfg>
-int launch_tiled(const void* x0, long long ld_x0, const void* x1,
-                 long long ld_x1, const void* w0, long long ld_w0,
-                 const void* w1, long long ld_w1, const Epilogue& ep, int D0,
-                 int D1, int split, cudaStream_t stream) {
+template <class Cfg, bool FULLE>
+int launch(const void* x0, long long ld_x0, const void* x1, long long ld_x1,
+           const void* w0, long long ld_w0, const void* w1, long long ld_w1,
+           const Epilogue& ep, int D0, int D1, int cluster, cudaStream_t stream) {
   constexpr int item = (int)sizeof(typename Cfg::T);
+  // a full-E cluster spans whole column tiles: c divides them
+  if (FULLE && ((ep.E + Cfg::BN - 1) / Cfg::BN) % cluster != 0)
+    return (int)cudaErrorInvalidValue;
   if (!encoder()) return (int)cudaErrorNotSupported;
   CUtensorMap mx0, mw0, mx1, mw1;
   const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
@@ -751,28 +727,14 @@ int launch_tiled(const void* x0, long long ld_x0, const void* x1,
 
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  const cudaError_t err = launch_config<Cfg>(&cfg, attr, ep.B, ep.E, split, stream);
+  const cudaError_t err =
+      launch_config<Cfg, FULLE>(&cfg, attr, ep.B, ep.E, cluster, stream);
   if (err != cudaSuccess) return (int)err;
   const int k0_tiles = (D0 + Cfg::BK - 1) / Cfg::BK;
   const int k1_tiles = (D1 + Cfg::BK - 1) / Cfg::BK;
-  return (int)cudaLaunchKernelEx(&cfg, embrace_fused_fwd_kernel<Cfg>, mx0, mw0, mx1, mw1, ep, k0_tiles,
-                                 k1_tiles);
-}
-
-template <typename T>
-cudaError_t launch_fulle(const void* x0, int64_t ld_x0, const void* x1,
-                         int64_t ld_x1, const void* w0, int64_t ld_w0,
-                         const void* w1, int64_t ld_w1, const float* b0,
-                         const float* b1, const float* p0,
-                         const float* e_mask, float* out, uint8_t* choose,
-                         int B, int D0, int D1, int E, uint32_t seed,
-                         const long long* seed_dev, cudaStream_t stream) {
-  const dim3 grid((B + fulle::BM - 1) / fulle::BM);
-  fulle::embrace_fulle_kernel<T><<<grid, fulle::THREADS, 0, stream>>>(
-      static_cast<const T*>(x0), ld_x0, static_cast<const T*>(x1), ld_x1,
-      static_cast<const T*>(w0), ld_w0, static_cast<const T*>(w1), ld_w1, b0,
-      b1, p0, e_mask, out, choose, B, D0, D1, E, seed, seed_dev);
-  return cudaGetLastError();
+  return (int)cudaLaunchKernelEx(&cfg, embrace_fused_fwd_kernel<Cfg, FULLE>, mx0,
+                                 mw0, mx1, mw1, ep, k0_tiles, k1_tiles, cluster,
+                                 FULLE ? 1 : cluster);
 }
 
 // f(Cfg{}) for the tile configuration of operand type `dtype` (0 = float32,
@@ -786,20 +748,37 @@ int with_tiles(int dtype, int bm, int bad, F f) {
   return bad;
 }
 
+template <bool FULLE>
+int entry(int dtype, const void* x0, long long ld_x0, const void* x1,
+          long long ld_x1, const void* w0, long long ld_w0, const void* w1,
+          long long ld_w1, const Epilogue& ep, int D0, int D1, void* stream,
+          int bm, int cluster) {
+  if (ep.B <= 0 || ep.E <= 0) return (int)cudaSuccess;
+  if (D0 <= 0 || D1 <= 0 || cluster < 1 || cluster > 8)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_tiles(dtype, bm, (int)cudaErrorInvalidValue, [&](auto tiles) {
+    return launch<decltype(tiles), FULLE>(x0, ld_x0, x1, ld_x1, w0, ld_w0, w1,
+                                          ld_w1, ep, D0, D1, cluster, s);
+  });
+}
+
 }  // namespace
 
-// The two launch entries, embrace_fused_fwd and embrace_fused_fwd_fulle:
-// dtype 0 = float32 operands, 1 = bfloat16 operands.
-// seed_dev: null, or a device pointer to one int64 whose low 32 bits replace
-// `seed`.  Return the CUDA error code of the launch (0 = success); a bad
-// argument returns cudaErrorInvalidValue.  They launch on `stream` and do
-// not synchronise.
+// The two launch entries, embrace_fused_fwd (tiled) and
+// embrace_fused_fwd_fulle (full-E): dtype 0 = float32 operands, 1 =
+// bfloat16 operands.  seed_dev: null, or a device pointer to one int64
+// whose low 32 bits replace `seed`.  Return the CUDA error code of the
+// launch (0 = success); a bad argument returns cudaErrorInvalidValue.  They
+// launch on `stream` and do not synchronise.  Every operand's base must be
+// 16-byte aligned and every row stride (ld * element size) a multiple of 16
+// bytes where it has more than one row: TMA reads them.
 //
-// embrace_fused_fwd also takes the launch plan of ops/embrace.py::
-// launch_plan: bm, the rows of an output tile (64 or 128), and split, the
-// CTAs of a cluster that share one tile's K (1 to 8).  Every operand's
-// base must be 16-byte aligned and every row stride (ld * element size) a
-// multiple of 16 bytes where it has more than one row: TMA reads them.
+// Both take a launch plan: bm, the rows of an output tile (64 or 128), and
+// a cluster width of 1 to 8.  embrace_fused_fwd: `split` of ops/embrace.py::
+// launch_plan, the CTAs of a cluster that share one tile's K.
+// embrace_fused_fwd_fulle: `cluster` of ops/embrace.py::fulle_plan, the
+// column tiles (128 features each) a cluster spans; it divides their number.
 extern "C" int embrace_fused_fwd(int dtype, const void* x0, long long ld_x0,
                                  const void* x1, long long ld_x1,
                                  const void* w0, long long ld_w0,
@@ -810,34 +789,9 @@ extern "C" int embrace_fused_fwd(int dtype, const void* x0, long long ld_x0,
                                  int D1, int E, unsigned int seed,
                                  const long long* seed_dev, void* stream,
                                  int bm, int split) {
-  if (B <= 0 || E <= 0) return (int)cudaSuccess;
-  if (D0 <= 0 || D1 <= 0 || split < 1 || split > 8)
-    return (int)cudaErrorInvalidValue;
   const Epilogue ep{b0, b1, p0, e_mask, out, choose, B, E, seed, seed_dev};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_tiles(dtype, bm, (int)cudaErrorInvalidValue, [&](auto tiles) {
-    return launch_tiled<decltype(tiles)>(x0, ld_x0, x1, ld_x1, w0, ld_w0, w1,
-                                         ld_w1, ep, D0, D1, split, s);
-  });
-}
-
-// How many clusters of one plan fit on the card at once
-// (cudaOccupancyMaxActiveClusters), or -1 on an error: with split CTAs a
-// cluster, fewer than ctas / split means the grid runs in more than one
-// wave.
-extern "C" int embrace_fused_fwd_clusters(int dtype, int B, int E, int bm,
-                                          int split) {
-  return with_tiles(dtype, bm, -1, [&](auto tiles) {
-    using Cfg = decltype(tiles);
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr[1];
-    int clusters = -1;
-    if (launch_config<Cfg>(&cfg, attr, B, E, split, 0) != cudaSuccess ||
-        cudaOccupancyMaxActiveClusters(&clusters, embrace_fused_fwd_kernel<Cfg>,
-                                       &cfg) != cudaSuccess)
-      return -1;
-    return clusters;
-  });
+  return entry<false>(dtype, x0, ld_x0, x1, ld_x1, w0, ld_w0, w1, ld_w1, ep, D0,
+                      D1, stream, bm, split);
 }
 
 extern "C" int embrace_fused_fwd_fulle(int dtype, const void* x0,
@@ -849,18 +803,34 @@ extern "C" int embrace_fused_fwd_fulle(int dtype, const void* x0,
                                        const float* e_mask, float* out,
                                        uint8_t* choose, int B, int D0, int D1,
                                        int E, unsigned int seed,
-                                       const long long* seed_dev,
-                                       void* stream) {
-  if (B <= 0 || E <= 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_fulle<float>(x0, ld_x0, x1, ld_x1, w0, ld_w0, w1, ld_w1,
-                                    b0, b1, p0, e_mask, out, choose, B, D0, D1,
-                                    E, seed, seed_dev, s);
-  if (dtype == 1)
-    return (int)launch_fulle<__nv_bfloat16>(x0, ld_x0, x1, ld_x1, w0, ld_w0, w1,
-                                            ld_w1, b0, b1, p0, e_mask, out,
-                                            choose, B, D0, D1, E, seed,
-                                            seed_dev, s);
-  return (int)cudaErrorInvalidValue;
+                                       const long long* seed_dev, void* stream,
+                                       int bm, int cluster) {
+  const Epilogue ep{b0, b1, p0, e_mask, out, choose, B, E, seed, seed_dev};
+  return entry<true>(dtype, x0, ld_x0, x1, ld_x1, w0, ld_w0, w1, ld_w1, ep, D0,
+                     D1, stream, bm, cluster);
+}
+
+// How many clusters of `cluster` CTAs of one plan fit on the card at once
+// (cudaOccupancyMaxActiveClusters) for the tiled kernel (fulle 0) or the
+// full-E kernel (fulle 1), or -1 on an error: fewer than ctas / cluster
+// means the grid runs in more than one wave.  B and E must give a grid that
+// the cluster divides.
+extern "C" int embrace_fused_fwd_clusters(int fulle, int dtype, int B, int E,
+                                          int bm, int cluster) {
+  return with_tiles(dtype, bm, -1, [&](auto tiles) {
+    using Cfg = decltype(tiles);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    int clusters = -1;
+    const cudaError_t err =
+        fulle ? launch_config<Cfg, true>(&cfg, attr, B, E, cluster, 0)
+              : launch_config<Cfg, false>(&cfg, attr, B, E, cluster, 0);
+    if (err != cudaSuccess) return -1;
+    const cudaError_t q =
+        fulle ? cudaOccupancyMaxActiveClusters(
+                    &clusters, embrace_fused_fwd_kernel<Cfg, true>, &cfg)
+              : cudaOccupancyMaxActiveClusters(
+                    &clusters, embrace_fused_fwd_kernel<Cfg, false>, &cfg);
+    return q == cudaSuccess ? clusters : -1;
+  });
 }

@@ -16,11 +16,16 @@ activations never reach device memory.
   seeded with ``seed`` on a CPU tensor; its backward is the JAX ``_bwd``:
   masked products in float32, which JAX left to XLA and which stay
   ``torch.matmul`` (cuBLAS on the card) here.
-* :func:`fused_embrace_fulle` is the full-E kernel, forward only as in JAX.
-  It computes the same function and draws the same Philox stream, so for
-  the same seed both kernels choose identically, bit for bit (the TPU
-  reseeded per B-block, ``seed + i``, so its two kernels did not); ``out``
-  agrees within rounding, because the two kernels sum K in another order.
+* :func:`fused_embrace_fulle` is the full-E kernel, forward only as in JAX:
+  the tiled kernel's mainloop and epilogue under a thread-block cluster
+  that spans E (:func:`fulle_plan`), each CTA owning one 128-feature column
+  tile and walking all of K, each x tile multicast by TMA to every CTA of
+  the cluster, so x is read once per cluster rather than once per column
+  tile.  It computes the same function and draws the same Philox stream,
+  so for the same seed both kernels choose identically, bit for bit (the
+  TPU reseeded per B-block, ``seed + i``, so its two kernels did not);
+  ``out`` is equal bit for bit where both plans take the same tile rows and
+  the tiled one splits no K, and within rounding elsewhere.
 * :func:`fused_embrace_reference` is the plain PyTorch version with the
   uniforms ``u`` given: the tests and ``chip_smoke.py`` hold both kernels
   against it.
@@ -37,7 +42,7 @@ wrapper always cast them to bfloat16.
 kernels read a tensor seed from device memory, so a seed drawn on the card
 never waits for the host.
 
-The tiled kernel reads its operands with TMA, which needs each base
+Both kernels read their operands with TMA, which needs each base
 16-byte aligned and each row stride a multiple of 16 bytes
 (:func:`tma_problem`).  The model's operands meet this, except x0 with a
 row of 4 bf16 values (the FFNN's narrowest last layer): :func:`tma_x0`
@@ -126,8 +131,8 @@ def _load():
         common = [i32, p, i64, p, i64, p, i64, p, i64, p, p, p, p, p, p,
                   i32, i32, i32, i32, ctypes.c_uint, p, p]
         lib.embrace_fused_fwd.argtypes = common + [i32, i32]   # bm, split
-        lib.embrace_fused_fwd_fulle.argtypes = common
-        lib.embrace_fused_fwd_clusters.argtypes = [i32] * 5
+        lib.embrace_fused_fwd_fulle.argtypes = common + [i32, i32]   # bm, cluster
+        lib.embrace_fused_fwd_clusters.argtypes = [i32] * 6
         lib.embrace_fused_fwd_clusters.restype = i32
         for fn in (lib.embrace_fused_fwd, lib.embrace_fused_fwd_fulle):
             fn.restype = i32
@@ -222,7 +227,7 @@ def launch_plan(B, E, D0, D1, dtype, sm_count, clusters=None) -> LaunchPlan:
     100 and B = 200 at E = 1024 split 8 and 4 ways: 128 CTAs."""
     fits = clusters or (lambda bm, split: sm_count // split)
     col_tiles = -(-E // TILE_N)
-    bm = 128 if -(-B // 128) * col_tiles >= sm_count else 64
+    bm = _tile_rows(B, col_tiles, sm_count)
     row_tiles = -(-B // bm)
     tiles = row_tiles * col_tiles
     k1_tiles = -(-D1 // TILE_K[dtype])
@@ -231,19 +236,82 @@ def launch_plan(B, E, D0, D1, dtype, sm_count, clusters=None) -> LaunchPlan:
     return LaunchPlan(bm, TILE_N, split, row_tiles, col_tiles)
 
 
+def _tile_rows(B, col_tiles, sm_count) -> int:
+    """Output tile rows of both kernels: 128 where 128-row tiles alone fill
+    the SMs (the serving batch of 4096), else 64."""
+    return 128 if -(-B // 128) * col_tiles >= sm_count else 64
+
+
+class FullEPlan(NamedTuple):
+    """How the full-E kernel covers one call: output tiles of ``bm`` rows x
+    ``bn`` features, clusters of ``cluster`` CTAs spanning that many
+    neighbouring column tiles of one row tile (each stage's x tile is
+    multicast to all of them).  The kernel receives ``bm`` and
+    ``cluster``; the rest is for the reader."""
+    bm: int
+    bn: int
+    cluster: int
+    row_tiles: int
+    col_tiles: int
+
+    @property
+    def ctas(self) -> int:
+        return self.row_tiles * self.col_tiles
+
+    @property
+    def clusters(self) -> int:
+        return self.ctas // self.cluster
+
+
+def fulle_plan(B, E, D0, D1, dtype, sm_count, clusters=None) -> FullEPlan:
+    """The full-E kernel's plan for a call on a card with ``sm_count`` SMs.
+
+    Tile rows as the tiled kernel's (:func:`launch_plan`), so both kernels
+    run the same tiles and K order wherever that one splits no K.  The
+    cluster width c divides the column tiles and is at most
+    :data:`MAX_SPLIT`; the plan takes the c whose clusters run in the fewest
+    waves, ``clusters(bm, c)`` being how many the card holds at once
+    (:func:`clusters_at_once` with ``fulle=True`` on the card; ``sm_count //
+    c`` where it is not given), then the widest, which reads x the fewest
+    times.  No K is split: the kernel walks all of D0 and D1 in every CTA,
+    whatever their widths."""
+    del D0, D1, dtype   # the plan does not depend on them
+    fits = clusters or (lambda bm, c: sm_count // c)
+    col_tiles = -(-E // TILE_N)
+    bm = _tile_rows(B, col_tiles, sm_count)
+    row_tiles = -(-B // bm)
+
+    def waves(c):
+        at_once = fits(bm, c)
+        n = row_tiles * col_tiles // c
+        return -(-n // at_once) if at_once > 0 else float("inf")
+
+    widths = [c for c in range(min(MAX_SPLIT, col_tiles), 0, -1) if col_tiles % c == 0]
+    c = min(widths, key=lambda c: (waves(c), -c))
+    if waves(c) == float("inf"):
+        raise RuntimeError(f"fulle_plan: no cluster of {bm}-row tiles fits "
+                           f"on the card")
+    return FullEPlan(bm, TILE_N, c, row_tiles, col_tiles)
+
+
 @lru_cache(maxsize=None)
-def clusters_at_once(dtype, bm, split, index=None) -> int:
-    """How many clusters of ``split`` CTAs of ``bm``-row tiles the card
-    (CUDA device ``index``, the current one by default) holds at once:
-    CUDA's occupancy query, which knows how the SMs fall into GPCs.
-    Raises ``RuntimeError`` where the query fails."""
+def clusters_at_once(dtype, bm, split, index=None, fulle=False) -> int:
+    """How many clusters of ``split`` CTAs of ``bm``-row tiles of the tiled
+    kernel (of the full-E kernel where ``fulle``) the card (CUDA device
+    ``index``, the current one by default) holds at once: CUDA's occupancy
+    query, which knows how the SMs fall into GPCs.  Raises
+    ``RuntimeError`` where the query fails."""
+    # a grid of one cluster: one tile split `split` ways, or `split` tiles
+    E = split * TILE_N if fulle else TILE_N
     with torch.cuda.device(index):
-        n = _load().embrace_fused_fwd_clusters(_DTYPE_CODE[dtype], bm,
-                                               TILE_N, bm, split)
+        n = _load().embrace_fused_fwd_clusters(int(fulle), _DTYPE_CODE[dtype],
+                                               bm, E, bm, split)
     if n < 0:
+        kernel = "full-E" if fulle else "tiled"
         raise RuntimeError(f"embrace_fused_fwd_clusters: the occupancy query "
-                           f"failed for {dtype} {bm}-row tiles split {split} "
-                           f"ways on CUDA device {index}")
+                           f"failed for the {kernel} kernel's {dtype} "
+                           f"{bm}-row tiles in clusters of {split} on CUDA "
+                           f"device {index}")
     return n
 
 
@@ -255,6 +323,16 @@ def card_plan(B, E, D0, D1, dtype, index) -> LaunchPlan:
         B, E, D0, D1, dtype,
         torch.cuda.get_device_properties(index).multi_processor_count,
         lambda bm, split: clusters_at_once(dtype, bm, split, index))
+
+
+@lru_cache(maxsize=None)
+def card_fulle_plan(B, E, D0, D1, dtype, index) -> FullEPlan:
+    """:func:`fulle_plan` for CUDA device ``index``, from its SM count and
+    its occupancy query for the full-E kernel; the wrapper's plan."""
+    return fulle_plan(
+        B, E, D0, D1, dtype,
+        torch.cuda.get_device_properties(index).multi_processor_count,
+        lambda bm, c: clusters_at_once(dtype, bm, c, index, fulle=True))
 
 
 def tma_problem(shape, strides, itemsize, address):
@@ -295,6 +373,23 @@ def _check_tma(x0, x1, w0, w1):
             raise ValueError(f"fused_embrace: TMA cannot read {name}: {why}")
 
 
+def _launch_args(entry: str, x0, x1, w0, w1):
+    """``(x0, plan)`` for a launch of kernel ``entry``: x0 as TMA reads it
+    (:func:`tma_x0`) and the plan arguments, ``(bm, split)`` of
+    :func:`card_plan` or ``(bm, cluster)`` of :func:`card_fulle_plan`.
+    Raises ``ValueError`` for an operand TMA cannot read, before anything
+    asks the card."""
+    x0 = tma_x0(x0)
+    _check_tma(x0, x1, w0, w1)
+    shape = (x0.shape[0], w0.shape[1], w0.shape[0], x1.shape[1], x0.dtype,
+             x0.device.index)
+    if entry == "embrace_fused_fwd":
+        p = card_plan(*shape)
+        return x0, (p.bm, p.split)
+    p = card_fulle_plan(*shape)
+    return x0, (p.bm, p.cluster)
+
+
 def _forward(entry: str, x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
     """``(out, choose)`` from the kernel ``entry`` on a CUDA tensor, or from
     the plain version with ``torch.Generator().manual_seed(seed)``
@@ -308,13 +403,7 @@ def _forward(entry: str, x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
     if x0.device.type != "cuda":
         raise ValueError(f"fused_embrace: unsupported device {x0.device}")
     lib = _load()
-    plan = ()
-    if entry == "embrace_fused_fwd":
-        x0 = tma_x0(x0)
-        _check_tma(x0, x1, w0, w1)
-        p = card_plan(b, e, w0.shape[0], x1.shape[1], x0.dtype,
-                      x0.device.index)
-        plan = (p.bm, p.split)
+    x0, plan = _launch_args(entry, x0, x1, w0, w1)
     out = torch.empty((b, e), dtype=torch.float32, device=x0.device)
     choose = torch.empty((b, e), dtype=torch.uint8, device=x0.device)
     if isinstance(seed, torch.Tensor):
@@ -397,10 +486,11 @@ def fused_embrace(x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
 
 
 def fused_embrace_fulle(x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
-    """The full-E kernel: :func:`fused_embrace`'s forward with one block per
-    8 rows and the whole E width, so ``x1`` is read once.  Forward only, as
-    the JAX ``_fused_fwd_fulle``: it raises where autograd would need a
-    gradient of it, instead of returning an output that trains nothing."""
+    """The full-E kernel: :func:`fused_embrace`'s forward with a cluster of
+    CTAs spanning E that share each x tile (:func:`fulle_plan`).  Forward
+    only, as the JAX ``_fused_fwd_fulle``: it raises where autograd would
+    need a gradient of it, instead of returning an output that trains
+    nothing."""
     global LAUNCHES_FULLE
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x0, x1, w0, b0, w1, b1)):

@@ -158,17 +158,28 @@ def test_gradients_on_the_card_equal_the_cpu_for_the_same_choose(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fulle_chooses_as_fused_for_the_same_seed(cuda, dtype):
-    x0, x1, w0, b0, w1, b1, e_mask = _inputs(cuda, dtype)
-    p0 = torch.linspace(0, 1, x0.shape[0], device=cuda)
+@pytest.mark.parametrize("b,d0,d1,e", TILED_SHAPES + [(100, 200, 600, 384)])
+def test_fulle_chooses_as_fused_for_the_same_seed(cuda, b, d0, d1, e, dtype):
+    """Same choose bit for bit; same out bit for bit where both kernels run
+    the same tiles in the same K order (same tile rows, no split K), else
+    within rounding.  E = 384 takes a cluster of 3, E = 768 one of 6."""
+    x0, x1, w0, b0, w1, b1, e_mask = _inputs(cuda, dtype, b, d0, d1, e, e - 64)
+    p0 = (torch.linspace(0, 1, b, device=cuda) if b > 1
+          else torch.full((1,), 0.5, device=cuda))
     before = K.LAUNCHES_FULLE
     out_f, ch_f = K.fused_embrace_fulle(x0, x1, w0, b0, w1, b1, p0, e_mask, 21)
     out_t, ch_t = K.fused_embrace(x0, x1, w0, b0, w1, b1, p0, e_mask, 21)
     torch.cuda.synchronize()
     assert K.LAUNCHES_FULLE == before + 1
     assert torch.equal(ch_f, ch_t)
-    tol = 1e-4 if dtype == torch.float32 else 1e-2
-    torch.testing.assert_close(out_f, out_t, rtol=tol, atol=tol)
+    assert bool((out_f[:, e - 64:] == 0).all())
+    index = torch.cuda.current_device()
+    tiled = K.card_plan(b, e, d0, d1, dtype, index)
+    if K.card_fulle_plan(b, e, d0, d1, dtype, index).bm == tiled.bm and tiled.split == 1:
+        assert torch.equal(out_f, out_t)
+    else:
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(out_f, out_t, rtol=tol, atol=tol)
 
 
 def _fit_inputs():

@@ -3,8 +3,9 @@
 The tiled kernel (``embracenet_tpu_torch/csrc/embrace.cu``) runs only on
 the card; what the wrapper decides before it launches is plain Python and
 is checked here: ``launch_plan`` (output tiles, the cluster's split of K),
-the TMA alignment rule ``tma_problem``, and ``tma_x0``'s zero padding of a
-bf16 x0 whose rows are 8 bytes.  The padded case must give the plain
+``fulle_plan`` (the full-E kernel's clusters spanning E), the TMA
+alignment rule ``tma_problem`` on both entries, and ``tma_x0``'s zero
+padding of a bf16 x0 whose rows are 8 bytes.  The padded case must give the plain
 version's output exactly: its inputs are small integers, so every sum is
 exact in any order.
 """
@@ -94,6 +95,100 @@ def test_failed_occupancy_query_raises(monkeypatch):
             K.clusters_at_once(torch.bfloat16, 64, 8, 0)
     finally:
         K.clusters_at_once.cache_clear()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,D0,D1,E", SHAPES)
+def test_fulle_plan_covers_every_tile_once(B, D0, D1, E, dtype):
+    plan = K.fulle_plan(B, E, D0, D1, dtype, SM)
+    assert plan.bm in (64, 128) and plan.bn == K.TILE_N
+    assert (plan.row_tiles - 1) * plan.bm < B <= plan.row_tiles * plan.bm
+    assert (plan.col_tiles - 1) * plan.bn < E <= plan.col_tiles * plan.bn
+    # a cluster spans whole column tiles of one row tile
+    assert 1 <= plan.cluster <= K.MAX_SPLIT and plan.col_tiles % plan.cluster == 0
+    assert plan.clusters * plan.cluster == plan.row_tiles * plan.col_tiles
+    # the tiled kernel's tile rows, so both run the same tiles
+    assert plan.bm == K.launch_plan(B, E, D0, D1, dtype, SM).bm
+
+
+def _h100_clusters(dtype, bm, c):
+    """The stub occupancy table: a one-CTA-an-SM tile by
+    :data:`H100_F32_CLUSTERS` (the query measured on the card), a bf16
+    64-row tile twice as many (two CTAs an SM)."""
+    one = {**H100_F32_CLUSTERS, 1: SM}
+    return one[c] * (2 if dtype == torch.bfloat16 and bm == 64 else 1)
+
+
+F32, BF16 = DTYPES
+
+
+@pytest.mark.parametrize("B,dtype,waves,cluster", [
+    (4096, F32, 2, 2), (4096, BF16, 2, 2),
+    (2048, F32, 2, 2),        # 256 one-CTA-an-SM tiles: 2 waves at best
+    (2048, BF16, 1, 2), (800, F32, 1, 8), (800, BF16, 1, 8),
+    (100, F32, 1, 8), (100, BF16, 1, 8)])
+def test_fulle_plan_takes_the_fewest_waves_then_the_widest_cluster(
+        B, dtype, waves, cluster):
+    """At B = 4096 a cluster of 8 (32 clusters, 15 at once) or 4 (64, 30
+    at once) would take 3 waves where 2 (128, 66 at once) takes 2."""
+    plan = K.fulle_plan(B, 1024, 256, 7936, dtype, SM,
+                        lambda bm, c: _h100_clusters(dtype, bm, c))
+    at_once = _h100_clusters(dtype, plan.bm, plan.cluster)
+    assert plan.cluster == cluster
+    assert -(-plan.clusters // at_once) == waves
+    for c in (1, 2, 4, 8):   # no cluster width takes fewer waves
+        assert -(-plan.ctas // c // _h100_clusters(dtype, plan.bm, c)) >= waves
+
+
+def test_failed_fulle_occupancy_query_raises(monkeypatch):
+    asked = []
+
+    class Lib:
+        @staticmethod
+        def embrace_fused_fwd_clusters(*args):
+            asked.append(args)
+            return -1                   # what the C entry returns on an error
+
+    monkeypatch.setattr(K, "_load", Lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda index: contextlib.nullcontext())
+    K.clusters_at_once.cache_clear()
+    try:
+        with pytest.raises(RuntimeError,
+                           match="occupancy query failed for the full-E kernel"):
+            K.clusters_at_once(torch.bfloat16, 128, 4, 0, fulle=True)
+    finally:
+        K.clusters_at_once.cache_clear()
+    # the full-E kernel's query, on a grid of one cluster of 4 column tiles
+    assert asked == [(1, 1, 128, 4 * K.TILE_N, 128, 4)]
+
+
+@pytest.mark.parametrize("entry", ["embrace_fused_fwd", "embrace_fused_fwd_fulle"])
+def test_both_entries_refuse_what_tma_cannot_read(entry, monkeypatch):
+    def no_card(*args):
+        raise AssertionError("the TMA check must come before the card's plan")
+
+    monkeypatch.setattr(K, "card_plan", no_card)
+    monkeypatch.setattr(K, "card_fulle_plan", no_card)
+    x1 = torch.zeros(8, 40, dtype=torch.bfloat16)[:, 1:33]   # base 2 bytes off
+    ok = torch.zeros(8, 32, dtype=torch.bfloat16)
+    w = torch.zeros(32, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="TMA cannot read x1"):
+        K._launch_args(entry, ok, x1, w, w)
+
+
+@pytest.mark.parametrize("entry,plan", [
+    ("embrace_fused_fwd", K.LaunchPlan(64, K.TILE_N, 8, 1, 1)),
+    ("embrace_fused_fwd_fulle", K.FullEPlan(64, K.TILE_N, 1, 1, 1))])
+def test_both_entries_pad_a_narrow_bf16_x0_and_pass_their_plan(entry, plan,
+                                                              monkeypatch):
+    monkeypatch.setattr(K, "card_plan", lambda *a: plan)
+    monkeypatch.setattr(K, "card_fulle_plan", lambda *a: plan)
+    x0 = torch.ones(8, 4, dtype=torch.bfloat16)
+    x1 = torch.zeros(8, 32, dtype=torch.bfloat16)
+    w0, w1 = torch.zeros(4, 16, dtype=torch.bfloat16), torch.zeros(32, 16, dtype=torch.bfloat16)
+    x0_tma, args = K._launch_args(entry, x0, x1, w0, w1)
+    assert x0_tma.shape == (8, 8) and torch.equal(x0_tma[:, :4], x0)
+    assert args == (plan.bm, plan[2])
 
 
 @pytest.mark.parametrize("shape,strides,item,address,ok", [
