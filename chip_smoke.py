@@ -66,8 +66,36 @@ without them.  It
 7. bench phase: ``tools/torch_embrace_bench.py``'s ``block_bench`` at
    B=4096 (few iterations) and ``engine_bench(True)``, the entry point that
    reaches the full-E kernel;
-8. prints the card's name and power limit, the ``{"kernels": [...]}`` line
-   and, last, ``{"ok": true, "device": {...}}``.
+8. CV phase: ``embracenet_tpu_torch.train`` of EmbraceNetMultimodal on
+   4,000 learnable windows at 566 features and 5 % positives (about 20:1,
+   so SMOTE and reverse-strand rebalancing run in every fold): 3 folds x 3
+   TPE trials over the full search space, 2 epochs, batch 100, float32,
+   fused kernel on, studies and checkpoints in a temporary directory under
+   ``embracenet_tpu_torch/_build/``.  The sequential run must leave 3
+   finished rows in each fold's study, every trial's, fold's and the
+   fold-best checkpoint, ``average_CV_AUPRC`` = round(mean of the fold
+   scores, 5), finite scores, the results JSON entry and its baseline, and
+   kernel launches in every fold's search and every retrain.  The
+   fold-fused run (``CVConfig(fuse_folds=True)``, fresh storage) must
+   sample the same params per study and trial number and train each trial
+   as the sequential run did: every trial's train-loss history and every
+   array of every checkpoint within 1e-6 of the sequential run's (the
+   test-AUPRC histories within 0.05, a second check); repeating the
+   sequential call resumes every fold with no launch and the same scores;
+   ``predict`` on the fold-best checkpoint launches the kernel and gives
+   rows that sum to 1.  It prints each run's wall, train windows/s and
+   launches;
+9. path-shape phase: while the serve, train and CV phases run,
+   ``ShapeLog`` stands in for ``fused_embrace`` and keeps the inputs and
+   output of the first call at each distinct layout the paths give the
+   kernel (balanced train batches of 93-97 rows, eval batches, the bf16
+   population's width buckets; a trial without width buckets docks at the
+   search space's widest D0, D1 and E).  After them the
+   kernel is replayed at each: the same output bit for bit, and the plain
+   version's ``where(choose, d0, d1)``, d0 at p0 = 1 and d1 at p0 = 0
+   within the kernel phase's tolerance;
+10. prints the card's name and power limit, the ``{"kernels": [...]}`` line
+    and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero without the last line.
 """
@@ -88,9 +116,10 @@ import embracenet_tpu_torch as et
 from embracenet_tpu_torch.benchkit import (IN_FEATURES, bound, cuda_ms,
                                            graph_ms, make_data, nvidia_smi,
                                            widest_flat_params)
-from embracenet_tpu_torch.config import TrainConfig
+from embracenet_tpu_torch.config import CVConfig, TrainConfig
 from embracenet_tpu_torch.convert import tree_to_numpy
 from embracenet_tpu_torch.hpo import space
+from embracenet_tpu_torch.hpo.study import Study
 from embracenet_tpu_torch.models import embracenet
 from embracenet_tpu_torch.models.layers import _highest_matmul_precision
 from embracenet_tpu_torch.models.reload import load_model
@@ -99,7 +128,9 @@ from embracenet_tpu_torch.training import engine
 from embracenet_tpu_torch.training.batching import balanced_plan, eval_plan
 from embracenet_tpu_torch.training.bucketing import plan_buckets
 from embracenet_tpu_torch.training.checkpoint import save_checkpoint
+from embracenet_tpu_torch.training.cv import checkpoint_name
 from embracenet_tpu_torch.training.modelspec import get_spec
+from embracenet_tpu_torch.training.results import ResultsDict
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "tools"))
@@ -123,6 +154,9 @@ EDGES = (dict(B=1, D0=4, D1=1024, E=512, live=512),
          dict(B=65, D0=64, D1=1000, E=768, live=640))
 N_WINDOWS = 10_000
 N_REQUESTS = 3
+# the CV phase: HEPG2's width at about the reference's worst imbalance
+CV_WINDOWS, CV_PREVALENCE = 4000, 0.05
+CV_MODEL, CV_CELL, CV_TASK = "EmbraceNetMultimodal", "HEPG2", "active_E_vs_inactive_E"
 
 
 def require(cond, what):
@@ -470,6 +504,315 @@ def serve_phase(workdir):
             "evaluate": metrics, "extremes": extremes}
 
 
+def strided_copy(w):
+    """A copy of the weight view ``w`` with its row stride (the model hands
+    the kernel ``dock*_w[:D, :E]`` of the full-width parameter)."""
+    wide = torch.empty((w.shape[0], w.stride(0)), dtype=w.dtype, device=w.device)
+    wide[:, :w.shape[1]].copy_(w)
+    return wide[:, :w.shape[1]]
+
+
+class ShapeLog:
+    """Stands in for ``ops.embrace.fused_embrace`` (``models.embracenet``
+    looks it up at each call) while the counted phases run.  At each
+    distinct operand layout (B, D0, D1, E, dtype, the weights' row strides)
+    it keeps the first call's inputs and output, copied on the stream right
+    after the launch; it launches no kernel and syncs nothing."""
+
+    def __init__(self):
+        self.seen = {}
+        self.real = K.fused_embrace
+
+    def __call__(self, x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
+        out, choose = self.real(x0, x1, w0, b0, w1, b1, p0, e_mask, seed)
+        if x0.is_cuda:
+            key = (x0.shape[0], w0.shape[0], w1.shape[0], w0.shape[1],
+                   str(x0.dtype).split(".")[-1], w0.stride(0), w1.stride(0))
+            if key not in self.seen:
+                with torch.no_grad():
+                    self.seen[key] = {"calls": 0, "args": (
+                        x0.clone(), x1.clone(), strided_copy(w0), b0.clone(),
+                        strided_copy(w1), b1.clone(), p0.clone(),
+                        e_mask.clone(),
+                        seed.clone() if isinstance(seed, torch.Tensor) else seed),
+                        "out": out.detach().clone()}
+            self.seen[key]["calls"] += 1
+        return out, choose
+
+
+def path_case(key, rec, dev):
+    """The kernel replayed on one layout the main paths gave it: the same
+    output bit for bit as on the path, ``where(choose, d0, d1)`` of the
+    plain version within the kernel phase's tolerance, d0 / d1 at
+    p0 = 1 / 0, masked columns 0."""
+    B, D0, D1, E, dtype, s0, s1 = key
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    x0, x1, w0, b0, w1, b1, p0, e_mask, seed = rec["args"]
+    args = (x0, x1, w0, b0, w1, b1)
+    ones, zeros = torch.ones(B, device=dev), torch.zeros(B, device=dev)
+    u0 = torch.zeros(B, E, device=dev)
+    d0, _ = K.fused_embrace_reference(*args, ones, e_mask, u0)
+    d1, _ = K.fused_embrace_reference(*args, zeros, e_mask, u0)
+    out, ch = K.fused_embrace(*args, p0, e_mask, seed)
+    require(torch.equal(out, rec["out"]), f"path shape {key}: the replay "
+            "differs from the output the path got")
+    want = torch.where(ch.bool(), d0, d1)
+    torch.testing.assert_close(out, want, rtol=tol, atol=tol)
+    require(bool((out[:, e_mask == 0] == 0).all()),
+            f"path shape {key}: masked columns must be 0")
+    out1, ch1 = K.fused_embrace(*args, ones, e_mask, 1)
+    torch.testing.assert_close(out1, d0, rtol=tol, atol=tol)
+    out0, ch0 = K.fused_embrace(*args, zeros, e_mask, 1)
+    torch.testing.assert_close(out0, d1, rtol=tol, atol=tol)
+    require(bool((ch1 == 1).all()) and bool((ch0 == 0).all()),
+            f"path shape {key}: p0 = 1 / 0 must choose modality 0 / 1")
+    return {"shape": [B, D0, D1, E], "dtype": dtype, "w_row_strides": [s0, s1],
+            "live": int(e_mask.sum()), "calls": rec["calls"],
+            "max_abs_err": max(float((out - want).abs().max()),
+                               float((out1 - d0).abs().max()),
+                               float((out0 - d1).abs().max())),
+            # trained activations grow: the error's scale
+            "max_abs_plain": max(float(d0.abs().max()), float(d1.abs().max()))}
+
+
+class FitLog:
+    """Wraps ``engine.fit`` (which ``hpo.search`` and ``training.cv`` call
+    through the module) to log, per fit, its kind (a search reports each
+    epoch, a retrain does not), its wall, its kernel launches, the windows
+    its trials trained (the fit's own ``chunk_callback`` count) and each
+    trial's train-loss history."""
+
+    def __init__(self):
+        self.fits = []
+        self.real = engine.fit
+
+    def __call__(self, spec, hps, opts, data_train, data_test, cfg, **kw):
+        entry = {"kind": "search" if kw.get("report_fn") else "retrain",
+                 "trials": len(hps), "windows": 0.0}
+
+        def count(_chunk, n_ep, _wall, windows_per_epoch):
+            entry["windows"] += windows_per_epoch * n_ep
+
+        launches0 = K.LAUNCHES
+        t0 = time.perf_counter()
+        res = self.real(spec, hps, opts, data_train, data_test, cfg,
+                        chunk_callback=count, **kw)
+        entry["wall_s"] = time.perf_counter() - t0   # fit() ends with a fetch
+        entry["launches"] = K.LAUNCHES - launches0
+        entry["loss_train"] = res.loss_train
+        self.fits.append(entry)
+        return res
+
+
+def trial_reads(name, array, hp):
+    """The part of checkpoint array ``name`` that its trial's forward reads:
+    all of it but the BatchNorm running statistics of CNN blocks beyond the
+    trial's depth and of channels beyond its width.  A training step
+    updates those in every block up to the population's deepest trial, as
+    the JAX package's ``cnn.features`` does, so they depend on which trials
+    share the population; nothing of the trial reads them."""
+    parts = name.split("|")
+    if parts[0] != "bn_state":
+        return array
+    block = int(parts[1][len("bn"):])
+    if block >= int(hp["cnn"]["n_layers"]):
+        return array[:0]
+    return array[:int(hp["cnn"]["channels"][block])]
+
+
+def fused_vs_sequential(seq_fits, fus_fits, seq_dir, fus_dir):
+    """Largest difference between the fold-fused and the sequential run in
+    each trial's train-loss history (the fused search population is the
+    folds' searches in fold order, the fused retrain the folds' retrains)
+    and in every checkpoint both wrote, in what its trial reads
+    (:func:`trial_reads`)."""
+    loss = 0.0
+    for kind in ("search", "retrain"):
+        seq = [h for f in seq_fits if f["kind"] == kind for h in f["loss_train"]]
+        fus = [h for f in fus_fits if f["kind"] == kind for h in f["loss_train"]]
+        require(len(seq) == len(fus) and all(len(a) == len(b)
+                                             for a, b in zip(seq, fus)),
+                f"cv: {kind} loss histories differ in length")
+        loss = max([loss] + [abs(x - y) for a, b in zip(seq, fus)
+                             for x, y in zip(a, b)])
+    files = sorted(f for f in os.listdir(seq_dir) if f.endswith(".npz"))
+    require(files and files == sorted(f for f in os.listdir(fus_dir)
+                                      if f.endswith(".npz")),
+            "cv: fused and sequential wrote other checkpoints")
+    params, meta_equal = 0.0, True
+    for name in files:
+        with np.load(os.path.join(seq_dir, name)) as a, \
+                np.load(os.path.join(fus_dir, name)) as b:
+            keys = [k for k in a.files if k != "__meta__"]
+            require(keys == [k for k in b.files if k != "__meta__"],
+                    f"cv: {name} holds other arrays fused than sequential")
+            meta_equal = meta_equal and bytes(a["__meta__"]) == bytes(b["__meta__"])
+            meta = json.loads(bytes(a["__meta__"]).decode())
+            hp = space.params_to_hp(CV_MODEL, meta["model_params"])
+            params = max([params] + [float(np.abs(
+                trial_reads(k, a[k], hp).astype(np.float64)
+                - trial_reads(k, b[k], hp)).max(initial=0.0)) for k in keys])
+    return {"loss_train_max_abs": loss, "checkpoint_max_abs": params,
+            "checkpoints": len(files), "metadata_equal": meta_equal}
+
+
+def cv_run(data, workdir, name, log, fuse=False):
+    """One ``embracenet_tpu_torch.train`` call of the CV phase on the card
+    -> (scores, its fits, wall s, kernel launches, storage, checkpoints)."""
+    storage = os.path.join(workdir, f"{name}.db")
+    ckdir = os.path.join(workdir, name)
+    results = ResultsDict(os.path.join(workdir, f"{name}_results.json"))
+    first = len(log.fits)
+    K.LAUNCHES = 0
+    t0 = time.perf_counter()
+    scores = et.train(CV_MODEL, CV_CELL, CV_TASK, data=data,
+                      cv_cfg=CVConfig(n_folds=3, n_trials=3, sampler="TPE",
+                                      fuse_folds=fuse),
+                      train_cfg=TrainConfig(num_epochs=2, epoch_chunk=2,
+                                            batch_size=100),
+                      results=results, storage=storage, checkpoint_dir=ckdir)
+    wall = time.perf_counter() - t0
+    return scores, log.fits[first:], wall, K.LAUNCHES, storage, ckdir
+
+
+def study_rows(storage):
+    """{fold: [(number, state, params, intermediate), ...]} of a CV run."""
+    out = {}
+    for fold in (1, 2, 3):
+        st = Study(f"{CV_CELL}_{CV_TASK}_{CV_MODEL}_{fold}", storage)
+        out[fold] = [(t.number, t.state, t.params, t.intermediate)
+                     for t in st.trials]
+        st.close()
+    return out
+
+
+def check_cv_run(scores, rows, ckdir, results_path):
+    study = f"{CV_CELL}_{CV_TASK}_{CV_MODEL}"
+    for fold, trials in rows.items():
+        require(len(trials) == 3 and all(t[1] in ("COMPLETE", "PRUNED")
+                                         for t in trials),
+                f"cv: fold {fold}'s study rows {[t[:2] for t in trials]}")
+        for number, state, _, _ in trials:
+            if state == "COMPLETE":
+                path = os.path.join(ckdir, f"{study}_{fold}{number}.npz")
+                require(os.path.exists(path), f"cv: missing {path}")
+        path = os.path.join(ckdir, f"{study}_fold{fold}_result.npz")
+        require(os.path.exists(path), f"cv: missing {path}")
+        it = scores[f"iteration_n_{fold}"]
+        values = (it["AUPRC_train"] + it["AUPRC_test"]
+                  + [v for f1 in it["F1_precision_recall"] for v in f1])
+        require(values and all(math.isfinite(v) for v in values),
+                f"cv: fold {fold} scores not finite")
+    best = os.path.join(ckdir, checkpoint_name(CV_CELL, CV_MODEL, CV_TASK, 0)
+                        + ".npz")
+    require(os.path.exists(best), f"cv: missing the fold-best {best}")
+    finals = scores["final_test_AUPRC_scores"]
+    require(len(finals) == 3 and all(math.isfinite(v) for v in finals)
+            and all(math.isfinite(v) for v in scores["final_train_AUPRC_scores"]),
+            f"cv: final scores {finals}")
+    require(scores["average_CV_AUPRC"] == float(np.round(sum(finals) / 3, 5)),
+            f"cv: average_CV_AUPRC {scores['average_CV_AUPRC']} of {finals}")
+    with open(results_path) as fh:
+        saved = json.load(fh)[CV_CELL][CV_TASK]
+    require(saved[CV_MODEL]["average_CV_AUPRC"] == scores["average_CV_AUPRC"]
+            and "baseline_AUPRC" in saved, "cv: results JSON lacks the entry")
+    return best
+
+
+def cv_phase(workdir):
+    data = make_data(CV_WINDOWS, IN_FEATURES, np.random.default_rng(0),
+                     prevalence=CV_PREVALENCE)
+    log = FitLog()
+    engine.fit = log
+    try:
+        # -- the main path: K-fold CV with a search per fold, sequential --
+        seq, seq_fits, seq_wall, seq_launches, seq_db, seq_dir = cv_run(
+            data, workdir, "seq", log)
+        seq_rows = study_rows(seq_db)
+        best = check_cv_run(seq, seq_rows, seq_dir,
+                            os.path.join(workdir, "seq_results.json"))
+        kinds = [f["kind"] for f in seq_fits]
+        require(kinds == ["search", "retrain"] * 3,
+                f"cv: sequential fits {kinds}, expected a search and a "
+                "retrain per fold")
+        require(all(f["launches"] > 0 for f in seq_fits),
+                f"cv: a fit launched no kernel: {seq_fits}")
+
+        # -- the same CV fold-fused: one search population, one retrain --
+        fus, fus_fits, fus_wall, fus_launches, fus_db, fus_dir = cv_run(
+            data, workdir, "fused", log, fuse=True)
+        fus_rows = study_rows(fus_db)
+        check_cv_run(fus, fus_rows, fus_dir,
+                     os.path.join(workdir, "fused_results.json"))
+        require([f["kind"] for f in fus_fits] == ["search", "retrain"]
+                 and all(f["launches"] > 0 for f in fus_fits),
+                 f"cv: fused fits {fus_fits}")
+        # each trial must train as in the sequential run: the same losses
+        # and the same parameters in every checkpoint
+        exact = fused_vs_sequential(seq_fits, fus_fits, seq_dir, fus_dir)
+        print(json.dumps({"cv_fused_vs_sequential": exact}), flush=True)
+        require(exact["loss_train_max_abs"] <= 1e-6
+                and exact["checkpoint_max_abs"] <= 1e-6
+                and exact["metadata_equal"],
+                f"cv: fused training differs from sequential: {exact}")
+        diffs = []
+        for fold in (1, 2, 3):
+            for a, b in zip(seq_rows[fold], fus_rows[fold]):
+                require(a[0] == b[0] and a[2] == b[2],
+                        f"cv: fold {fold} trial {a[0]}: fused sampled "
+                        "other params than sequential")
+                diffs += [abs(a[3][e] - b[3][e]) for e in a[3] if e in b[3]]
+            diffs += [abs(x - y) for x, y in zip(
+                seq[f"iteration_n_{fold}"]["AUPRC_test"],
+                fus[f"iteration_n_{fold}"]["AUPRC_test"])]
+        fused_vs_seq = max(diffs)
+        print(json.dumps({"cv_fused_vs_sequential_max_abs": fused_vs_seq}),
+              flush=True)
+        require(fused_vs_seq <= 0.05, f"cv: fused test-AUPRC histories off "
+                f"the sequential ones by {fused_vs_seq}")
+
+        # -- resume: every fold comes from its checkpoint --
+        again, again_fits, again_wall, again_launches, _, _ = cv_run(
+            data, workdir, "seq", log)
+        require(again_launches == 0 and not again_fits,
+                f"cv: resume launched {again_launches} kernels, fits {again_fits}")
+        require(again["final_test_AUPRC_scores"] == seq["final_test_AUPRC_scores"]
+                and again["average_CV_AUPRC"] == seq["average_CV_AUPRC"],
+                "cv: resumed scores differ")
+    finally:
+        engine.fit = log.real
+
+    # -- serve the fold-best checkpoint on the card --
+    K.LAUNCHES = 0
+    t0 = time.perf_counter()
+    probs = et.predict(best, data)
+    predict_wall = time.perf_counter() - t0
+    predict_launches = K.LAUNCHES
+    require(predict_launches > 0, "cv: predict launched no kernel")
+    require(probs.shape == (CV_WINDOWS, 2) and bool(np.isfinite(probs).all())
+            and bool(np.abs(probs.sum(1) - 1).max() <= 1e-5),
+            "cv: fold-best predictions must be finite rows that sum to 1")
+
+    def run(scores, fits, wall, launches):
+        windows = sum(f["windows"] for f in fits)
+        return {"wall_s": wall, "fits_wall_s": sum(f["wall_s"] for f in fits),
+                "launches": launches,
+                "train_windows": windows, "train_windows_per_s": windows / wall,
+                "fits": fits,
+                "final_test_AUPRC": scores["final_test_AUPRC_scores"],
+                "final_train_AUPRC": scores["final_train_AUPRC_scores"],
+                "average_CV_AUPRC": scores["average_CV_AUPRC"]}
+
+    return {"launches": seq_launches + fus_launches + predict_launches,
+            "windows": CV_WINDOWS, "positives": int(data["y"].sum()),
+            "sequential": run(seq, seq_fits, seq_wall, seq_launches),
+            "fused": run(fus, fus_fits, fus_wall, fus_launches),
+            "resume": {"wall_s": again_wall, "launches": again_launches},
+            "fused_vs_sequential_max_abs": fused_vs_seq,
+            "fused_vs_sequential": exact,
+            "predict": {"wall_s": predict_wall, "launches": predict_launches}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's smoke test "
@@ -507,14 +850,31 @@ def main() -> int:
         grads = grad_phase(shape, dev, gen)
         print(json.dumps({"gradient": grads, "card": card}), flush=True)
 
-    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "embracenet_tpu_torch",
-                                                      "_build")) as workdir:
-        serve = serve_phase(workdir)
-    print(json.dumps({"serve": serve, "card": card}), flush=True)
-    train = train_phase()
-    print(json.dumps({"train": train, "card": card}), flush=True)
+    build_dir = os.path.join(REPO, "embracenet_tpu_torch", "_build")
+    shapes = ShapeLog()
+    K.fused_embrace = shapes
+    try:
+        with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
+            serve = serve_phase(workdir)
+        print(json.dumps({"serve": serve, "card": card}), flush=True)
+        train = train_phase()
+        print(json.dumps({"train": train, "card": card}), flush=True)
+    finally:
+        K.fused_embrace = shapes.real
     bench_out = bench_phase()
     print(json.dumps({"bench": bench_out, "card": card}), flush=True)
+    K.fused_embrace = shapes
+    try:
+        with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
+            cv = cv_phase(workdir)
+    finally:
+        K.fused_embrace = shapes.real
+    print(json.dumps({"cv": cv, "card": card}), flush=True)
+
+    # -- the kernel at every layout the serve, train and CV phases gave it --
+    path_cases = [path_case(key, rec, dev) for key, rec in shapes.seen.items()]
+    shapes.seen.clear()
+    print(json.dumps({"path_cases": path_cases, "card": card}), flush=True)
 
     def row(name, source_line, launches, cs):
         main_f32 = cs[0]
@@ -531,7 +891,9 @@ def main() -> int:
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
-        row("embrace_fused_fwd", 39, serve["launches"] + train["launches"], cases),
+        row("embrace_fused_fwd", 39,
+            serve["launches"] + train["launches"] + cv["launches"],
+            cases + path_cases),
         row("embrace_fused_fwd_fulle", 78, bench_out["launches_fulle"],
             fulle_cases)]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,12 @@ becomes a kernel written by hand for Hopper under ``csrc/``.
 Entry points run on the CUDA card.  Without one they raise unless the
 caller asks for ``device="cpu"``; there is no silent CPU fallback.
 
-Ported so far: checkpoint serving (``predict`` / ``evaluate``) and
-population training (``training.engine.fit``) for the FFNN, CNN and
-EmbraceNetMultimodal families, with EmbraceNet's docking and stochastic
-embracement in the fused CUDA kernels and their gradient
+Ported so far: checkpoint serving (``predict`` / ``evaluate``),
+population training (``training.engine.fit``) and the whole search-and-CV
+workflow (``train``: K-fold CV, a hyperparameter search per fold on a
+SQLite study, the best trial's retrain, scores and checkpoints) for the
+FFNN, CNN and EmbraceNetMultimodal families, with EmbraceNet's docking and
+stochastic embracement in the fused CUDA kernels and their gradient
 (``ops/embrace.py``).
 """
 
@@ -55,7 +57,7 @@ def resolve_device(device=None):
 
 def __getattr__(name):
     # Lazy: the api module pulls in the model stack.
-    if name in ("predict", "evaluate"):
+    if name in ("train", "predict", "evaluate"):
         from embracenet_tpu_torch import api
 
         return getattr(api, name)
@@ -70,6 +72,7 @@ __all__ = [
     "N_CLASSES",
     "default_device",
     "resolve_device",
+    "train",
     "predict",
     "evaluate",
 ]

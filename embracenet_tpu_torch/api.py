@@ -1,20 +1,100 @@
-"""Serving entry points (port of ``predict`` / ``evaluate`` from
+"""Entry points (port of ``train``, ``predict`` and ``evaluate`` from
 ``embracenet_tpu/api.py``).
 
   >>> import embracenet_tpu_torch as et
+  >>> scores = et.train("EmbraceNetMultimodal", "K562",
+  ...                   "active_P_vs_inactive_P", data=data)
   >>> probs = et.predict("models/K562_EmbraceNetMultimodal_..._test_", data)
   >>> metrics = et.evaluate("models/...", data)
 
-Both run on the card unless the caller passes ``device="cpu"``.
+All run on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from embracenet_tpu_torch.config import CVConfig, MeshConfig, TrainConfig
 from embracenet_tpu_torch.models.reload import load_model
-from embracenet_tpu_torch.training.results import baseline_auprc
+from embracenet_tpu_torch.training.cv import KfoldCV, checkpoint_name
+from embracenet_tpu_torch.training.results import ResultsDict, baseline_auprc
+
+
+def resolve_mesh(mesh, device=None):
+    """Normalise a mesh argument as the JAX package's ``resolve_mesh``
+    does: None, ``"auto"`` on one device and a 1 x 1 ``MeshConfig`` are the
+    single-device path (None).  Anything wider raises: the multi-device
+    path is not ported (ROADMAP.md Queue 1 item 8)."""
+    if mesh is None:
+        return None
+    if mesh == "auto":
+        on_card = device is None or torch.device(device).type == "cuda"
+        if not on_card or torch.cuda.device_count() <= 1:
+            return None
+    elif isinstance(mesh, MeshConfig) and mesh.trial_axis * mesh.data_axis <= 1:
+        return None
+    raise NotImplementedError(f"mesh={mesh!r}: the multi-device path is not "
+                              "ported to PyTorch yet: ROADMAP.md Queue 1 "
+                              "item 8 (multi-device)")
+
+
+def train(model: str, cell_line: str, task: str,
+          pipeline=None, data: dict | None = None,
+          cv_cfg: CVConfig = CVConfig(), train_cfg: TrainConfig = TrainConfig(),
+          augmentation: bool | None = None,
+          results: ResultsDict | None = None,
+          storage: str = "optuna_tuning.db",
+          checkpoint_dir: str = "models",
+          random_state: int = 789, verbose: bool = False,
+          mesh=None, model_label: str | None = None, device=None) -> dict:
+    """K-fold CV with per-fold HPO for one (model, cell, task); returns the
+    reference-shaped scores dict and records it into ``results`` if given.
+
+    ``data``: {"ffnn": [N, D] float, "cnn": [N, 256] uint8 codes, "y"}.
+    The data layer (``preprocess`` / ``Pipeline``) is not ported yet
+    (ROADMAP.md Queue 1 item 6), so ``data`` is required and a
+    ``pipeline`` raises.
+
+    ``mesh``: see :func:`resolve_mesh`; only the single-device path runs.
+
+    ``model_label``: the name that studies, checkpoints and the results
+    entry are recorded under, when it is not ``model`` (two runs of one
+    family, e.g. with another rebalancer, then keep their files apart).
+
+    Every fit runs on the card unless ``device`` says otherwise
+    (``"cpu"``)."""
+    mesh = resolve_mesh(mesh, device)
+    if data is None or pipeline is not None:
+        raise NotImplementedError(
+            "train(pipeline=..., data=None) loads the cell line through the "
+            "data layer (Pipeline), which is not ported to PyTorch yet: "
+            "ROADMAP.md Queue 1 item 6 (data layer); pass "
+            "data={'ffnn', 'cnn', 'y'} and no pipeline")
+    if augmentation is not None:
+        cv_cfg = dataclasses.replace(cv_cfg, augmentation=augmentation)
+    label = model_label or model
+    cv = KfoldCV()
+    scores = cv(data, model, task=task, cell_line=cell_line,
+                cv_cfg=cv_cfg, train_cfg=train_cfg,
+                study_name=f"{cell_line}_{task}_{label}"
+                           f"{'augmentation' if cv_cfg.augmentation else ''}",
+                storage=storage, checkpoint_dir=checkpoint_dir,
+                test_model_path=checkpoint_name(
+                    cell_line, label, task, 0, cv_cfg.augmentation),
+                random_state=random_state, verbose=verbose, mesh=mesh,
+                device=device)
+    if results is not None:
+        # record under the label: a variant run (model_label="FFNN_smote")
+        # must not overwrite the canonical family entry — the canonical one
+        # is written by select_augmented_models after the variant contest
+        name = label + ("_augmentation" if cv_cfg.augmentation else "")
+        results.update(cell_line, task, name, scores)
+        results.set_baseline(cell_line, task, baseline_auprc(data["y"]))
+        results.save()
+    return scores
 
 
 def predict(checkpoint_path: str, data: dict,

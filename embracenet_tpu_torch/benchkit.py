@@ -86,9 +86,10 @@ def bound(B, D0, D1, E, dtype):
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
-def make_data(n, d, rng):
-    """``bench.py``'s learnable synthetic windows."""
-    y = (rng.random(n) < 0.15).astype(np.int64)
+def make_data(n, d, rng, prevalence=0.15):
+    """``bench.py``'s learnable synthetic windows (``prevalence``: the share
+    of positives, ``bench.py``'s 0.15 by default)."""
+    y = (rng.random(n) < prevalence).astype(np.int64)
     w = rng.normal(size=d)
     x = (rng.normal(size=(n, d)) + np.outer(y * 2 - 1, w) * 0.5).astype(np.float32)
     codes = rng.integers(0, 4, size=(n, 256)).astype(np.uint8)

@@ -133,7 +133,11 @@ def features(params, bn_state, hp, x, *, train: bool = False, generator=None,
             k: torch.cat([bn_new[k], bn_state[f"bn{i}"][k][c_out:]])
             for k in bn_new}
         z = maxpool1d(torch.relu(z))
-        z = _dropout(z, hp["dropout"][i], generator, train)
+        # a block beyond the trial's depth draws no dropout: nothing of the
+        # trial reads it, and so the generator's later draws (modality
+        # dropout, embracement, post layers) do not depend on how deep the
+        # population's deepest trial is
+        z = _dropout(z, hp["dropout"][i], generator, train and i < n_layers)
         h = z * width_mask(c_out, hp["channels"][i], x.device)[None, :, None]
         flat = h.reshape(h.shape[0], -1)
         flats.append(F.pad(flat, (0, flat_bk - flat.shape[1])))

@@ -171,11 +171,11 @@ def _device_data(data, spec: ModelSpec, device):
 
 
 def _pad_plan(plan, n_batches: int, width: int):
-    """A BatchPlan padded to (n_batches, width): dummy batches are fully
-    masked (the train step keeps its state through them) and metric sums
-    divide by the real divisor.  The JAX engine also rounds both up to
-    buckets (4 batches, 16 rows) to reuse compiled programs; here padding
-    only lets per-trial plans of different shapes stack."""
+    """A BatchPlan padded to (n_batches, width) with masked rows.  Padding
+    only lets per-trial plans of different shapes stack: ``fit`` walks each
+    trial's own batches at its own width and never runs the padding.  The
+    JAX engine also rounds both up to buckets (4 batches, 16 rows) to reuse
+    compiled programs."""
     idx = np.zeros((n_batches, width), np.int64)
     mask = np.zeros((n_batches, width), np.float32)
     idx[:plan.idx.shape[0], :plan.idx.shape[1]] = plan.idx
@@ -360,6 +360,11 @@ def fit(spec: ModelSpec,
     eval_div_dev = torch.as_tensor(eval_div, device=dev)
 
     plan_idx, plan_mask = _stack_plans(plans, dev)
+    # each plan's own [nb, bw]: a trial of a padded stack (fold-fused plans)
+    # walks only its own batches at its own width, so its steps, random
+    # draws and results are those of the fit that had its plan alone
+    train_dims = [p.idx.shape for p in plans]
+    eval_dims = [p.idx.shape for p in tplans]
     if cfg.eval_reshuffle:
         # the reference reshuffles its test loader every epoch
         # (training_models.py:477); every epoch's plan goes to the device
@@ -388,9 +393,12 @@ def fit(spec: ModelSpec,
                 batch = _gather(train_data, plan_idx[0, b], spec)
             for t in range(n_trials):
                 p_ = 0 if shared_plan else t
+                nb, bw = train_dims[p_]
+                if b >= nb:
+                    continue          # padding of a shorter plan
                 inputs, y = (batch if shared_plan
-                             else _gather(train_data, plan_idx[t, b], spec))
-                mask = plan_mask[p_, b]
+                             else _gather(train_data, plan_idx[t, b, :bw], spec))
+                mask = plan_mask[p_, b, :bw]
                 seed_tb = int(run_rngs[t].integers(0, 2 ** 31 - 1))
                 loss, logits, new_p, new_bn, new_opt = train_step(
                     spec, _trial(params, t), _trial(bn_state, t),
@@ -411,10 +419,11 @@ def fit(spec: ModelSpec,
         with torch.no_grad():
             for t in range(n_trials):
                 p_ = 0 if t_idx.shape[0] == 1 else t
+                nb, bw = eval_dims[p_]
                 a_sum, f_sum = [], []
-                for b in range(t_idx.shape[1]):
-                    inputs, y = _gather(test_data, t_idx[p_, b], spec)
-                    mask = t_mask[p_, b]
+                for b in range(nb):
+                    inputs, y = _gather(test_data, t_idx[p_, b, :bw], spec)
+                    mask = t_mask[p_, b, :bw]
                     logits, _ = spec.apply(_trial(params, t), _trial(bn_state, t),
                                            hp_list[t], inputs, False, 0, mask,
                                            compute_dtype, statics)
@@ -525,3 +534,23 @@ def fit(spec: ModelSpec,
                      f1_precision_recall=hist_f1,
                      epochs_run=[len(h) for h in hist_test],
                      loss_train=hist_loss)
+
+
+def weight_reset(seed: int, spec: ModelSpec, hp_concrete, old_params,
+                 old_bn_state):
+    """Reference ``weight_reset`` parity (`models/utils/utils.py:155-163`;
+    JAX ``engine.weight_reset``): re-initialise Linear/Conv weights from a
+    generator seeded with ``seed`` but keep BatchNorm affine params and
+    running stats from HPO training (the reference resets only
+    Conv1d/Linear/LSTM modules — a quirk kept here).  Returns
+    ``(params, old_bn_state)``; kept leaves stay as they were given."""
+    fresh_params, _ = spec.init(torch.Generator().manual_seed(int(seed)),
+                                hp_concrete)
+
+    def merge(fresh, old):
+        if isinstance(fresh, dict):
+            return {k: (old[k] if k.startswith("bn") else merge(fresh[k], old[k]))
+                    for k in fresh}
+        return fresh
+
+    return merge(fresh_params, old_params), old_bn_state

@@ -35,6 +35,8 @@ class ModelSpec:
     apply: Callable        # (params, bn_state, hp, inputs, train, seed,
     #                         row_mask, compute_dtype, statics) -> (logits, bn)
     statics: Callable = None   # hp_list -> dict of static shape knobs
+    vmappable: bool = True     # False: shapes vary per trial; HPO fits
+    #                            each architecture as its own population
     fan_ins: Callable = None   # hp_concrete -> fan-in tree (numpy)
     init_from_fans: Callable = None  # (generator, fans) -> (params, bn_state):
     #                                  a population inits trial by trial from

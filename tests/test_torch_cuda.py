@@ -1,7 +1,7 @@
 """Tests of the port that need the CUDA card: the fused embrace kernels
 against their plain version, the fused op's gradient on the card against
-the CPU, serving on the card against serving on the CPU, and a fit on the
-card.  They skip without a card.  This file imports neither JAX nor the
+the CPU, serving on the card against serving on the CPU, a fit on the
+card and a study's search.  They skip without a card.  This file imports neither JAX nor the
 JAX package, so the machine with the card runs it on its own:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -234,3 +234,36 @@ def test_fit_never_waits_for_the_card_inside_a_chunk(cuda):
             torch.cuda.set_sync_debug_mode("default")
     assert any("_process" in w for w in waits)   # the per-chunk fetch
     assert not [w for w in waits if "run_chunk" in w]
+
+
+def test_run_search_trains_its_trials_on_the_card(cuda, tmp_path):
+    """A 3-trial study (the reference's count) through ``run_search`` on the
+    card: its rows, finite values and the kernel's launches."""
+    from embracenet_tpu_torch.hpo.samplers import ReplaySampler
+    from embracenet_tpu_torch.hpo.search import run_search
+    from embracenet_tpu_torch.hpo.study import Study
+
+    spec, _, _, train, test = _fit_inputs()
+    draw = {"FFNN_n_layers": 1, "FFNN_n_units_l0": 32, "FFNN_dropout_l0": 0.0,
+            "CNN_n_layers": 1, "CNN_out_channels_l0": 16,
+            "CNN_kernel_size_l0": 5, "CNN_dropout_l0": 0.0,
+            "EMBRACENET_embracement_size": 512, "n_post_layers": 0,
+            "selection_probabilities_FFNN": 0.5,
+            "optimizer": "Adam", "lr": 1e-3, "weight_decay": 1e-4}
+    draws = [draw, dict(draw, lr=2e-3), dict(draw, optimizer="RMSprop")]
+    before = K.LAUNCHES
+    res = run_search(spec, "EmbraceNetMultimodal", train, test, "s",
+                     storage=str(tmp_path / "s.db"),
+                     sampler=ReplaySampler(draws), n_trials=3,
+                     train_cfg=TrainConfig(num_epochs=2, epoch_chunk=2,
+                                           batch_size=100),
+                     checkpoint_dir=str(tmp_path))
+    assert K.LAUNCHES - before == 3 * 2 * (4 + 1)
+    study = Study("s", str(tmp_path / "s.db"))
+    rows = study.trials
+    study.close()
+    assert [t.state for t in rows] == ["COMPLETE"] * 3
+    assert [t.params for t in rows] == draws
+    assert all(np.isfinite(t.value) and len(t.intermediate) == 2 for t in rows)
+    assert res.n_complete == 3 and res.best_model is not None
+    assert res.best_value == max(t.value for t in rows)

@@ -10,7 +10,8 @@
   unfused path, which computes the same function there).
 * Engine behaviour: the early-stopping arithmetic, freezing on fully
   masked batches and for stopped trials, a population equal to its
-  single-trial fits bit for bit, pipelined chunks, the device rule.
+  single-trial fits bit for bit (with a shared plan, and with per-trial
+  plans of different shapes), pipelined chunks, the device rule.
 * A fit on learnable data lands within 0.2 of the JAX engine's best test
   AUPRC (different RNG streams, so a band); slow, the JAX fit takes long
   on the CPU.
@@ -225,6 +226,39 @@ def test_population_equals_its_single_trial_fits(rng):
     # and seed=5 derives exactly these streams
     again = engine.fit(SPEC, hps, opts, train, test, cfg, seed=5, device="cpu")
     _equal_trees(again.params, pop.params)
+
+
+def test_trials_of_padded_per_trial_plans_train_as_alone(rng):
+    """Per-trial plans of different shapes (fold-fused CV: 300 and 170
+    train rows, 100 and 60 test rows) stack padded; each trial still walks
+    only its own batches at its own width, so it draws and computes what a
+    fit with its plan alone does, dropout included."""
+    from embracenet_tpu_torch.training.batching import balanced_plan, shift_plan
+
+    (tr_a, te_a), (tr_b, te_b) = _data(rng), _data(rng)
+    tr_b = {k: v[:170] for k, v in tr_b.items()}
+    te_b = {k: v[:60] for k, v in te_b.items()}
+    hp, opt, _ = _trial(0.5, FFNN_dropout_l0=0.3, CNN_dropout_l0=0.2,
+                        EMBRACENET_dropout_l0=0.2)
+    cfg = _cfg(num_epochs=2, epoch_chunk=1, batch_size=40)
+    cat = {k: np.concatenate([tr_a[k], tr_b[k]]) for k in tr_a}
+    cat_te = {k: np.concatenate([te_a[k], te_b[k]]) for k in te_a}
+    plans = [balanced_plan(tr_a["y"], 40),
+             shift_plan(balanced_plan(tr_b["y"], 40), 300)]
+    evals = [eval_plan(100, 80), shift_plan(eval_plan(60, 80), 100)]
+    assert plans[0].idx.shape != plans[1].idx.shape
+    init_seeds, run_seeds = engine.seed_streams(3, 2)
+    fused = engine.fit(SPEC, [hp, hp], [opt, opt], cat, cat_te, cfg,
+                       train_plans=plans, eval_plans=evals,
+                       init_seeds=init_seeds, run_seeds=run_seeds, device="cpu")
+    for k, (tr, te) in enumerate(((tr_a, te_a), (tr_b, te_b))):
+        one = engine.fit(SPEC, [hp], [opt], tr, te, cfg,
+                         init_seeds=init_seeds[k:k + 1],
+                         run_seeds=run_seeds[k:k + 1], device="cpu")
+        assert fused.auprc_train[k] == one.auprc_train[0]
+        assert fused.auprc_test[k] == one.auprc_test[0]
+        assert fused.loss_train[k] == one.loss_train[0]
+        _equal_trees(tree_map(lambda a: a[k:k + 1], fused.params), one.params)
 
 
 def test_pipelined_chunks_change_nothing_and_report_windows(rng):

@@ -172,3 +172,20 @@ def test_embracenet_init_shapes_and_fans():
     bound = 1 / np.sqrt(fans_j["dock"][1])
     w = params_t["dock1_w"]
     assert w.abs().max().item() <= bound and w.abs().max().item() > 0.99 * bound
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_embracenet_training_draws_do_not_depend_on_the_population_depth(rng, fused):
+    """A one-block CNN trial trains alike whether its population's deepest
+    trial has 1 or 3 blocks: the blocks beyond its depth draw no dropout,
+    so modality dropout, the embracement and the post layers draw the same
+    numbers from the step's generator (what fold-fused CV relies on)."""
+    flat = dict(flat_embracenet(0.5, cnn_layers=1), CNN_dropout_l0=0.2,
+                CNN_dropout_l1=0.4, CNN_dropout_l2=0.4, EMBRACENET_dropout_l0=0.3)
+    hp = jspace.params_to_hp("EmbraceNetMultimodal", flat)
+    params, bn = tem.init(torch.Generator().manual_seed(0), hp, IN_FEATURES)
+    x = t(rng.normal(size=(9, IN_FEATURES)).astype(np.float32))
+    codes = one_hot(t(rng.integers(0, 4, size=(9, 256)).astype(np.uint8)))
+    out = [tem.apply(params, bn, hp, x, codes, train=True, seed=3,
+                     cnn_max_depth=depth, fused=fused)[0] for depth in (1, 3)]
+    close(out[1], out[0], 1e-6)

@@ -157,9 +157,10 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tools", "torch_embrace_bench.py"),
-             os.path.join(REPO, "tools", "torch_serve_profile.py")]
+    tools = os.path.join(REPO, "tools")
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(tools, n) for n in sorted(os.listdir(tools))
+        if n.startswith("torch_") and n.endswith(".py")]
     for root, dirs, names in os.walk(os.path.join(REPO, "embracenet_tpu_torch")):
         dirs[:] = [d for d in dirs if d != "_build"]  # build outputs, not source
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -167,7 +168,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     names = {os.path.relpath(f, REPO) for f in files}
     assert {"embracenet_tpu_torch/training/engine.py",
             "embracenet_tpu_torch/benchkit.py",
-            "embracenet_tpu_torch/ops/optim.py"} <= names
+            "embracenet_tpu_torch/ops/optim.py",
+            "embracenet_tpu_torch/training/cv.py",
+            "embracenet_tpu_torch/hpo/search.py",
+            "embracenet_tpu_torch/data/sampling.py",
+            "embracenet_tpu_torch/utils/skcompat.py",
+            "tools/torch_embrace_ab.py", "tools/torch_embrace_bench.py",
+            "tools/torch_serve_profile.py"} <= names
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

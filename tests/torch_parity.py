@@ -1,13 +1,26 @@
 """Shared helpers for the tests that hold the PyTorch port against the JAX
-package: hyperparameter constructors and the numpy bridge between the two."""
+package: hyperparameter constructors, the numpy bridge between the two,
+and a deterministic stand-in for ``engine.fit`` that both packages' search
+and CV code can be run on."""
 
 from __future__ import annotations
+
+import os
 
 import jax
 import numpy as np
 import torch
 
+from embracenet_tpu.training.checkpoint import load_checkpoint as j_load_ck
 from embracenet_tpu_torch.convert import tree_to_torch
+from embracenet_tpu_torch.training.checkpoint import load_checkpoint as t_load_ck
+
+# Each pytest-xdist worker is a process of its own, and torch's default of
+# one intra-op thread per core makes two workers that train at once thrash
+# each other (two files of about a minute each took 6.5 minutes side by
+# side).  The port's CPU tests run small tensors, which two threads serve
+# about as fast.
+torch.set_num_threads(min(2, torch.get_num_threads()))
 
 IN_FEATURES = 16
 
@@ -55,3 +68,113 @@ def t(a):
 def close(got, want, tol):
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     np.testing.assert_allclose(got, np.asarray(want), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# a fake engine.fit for both packages' search and CV accounting
+# ---------------------------------------------------------------------------
+
+def to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().numpy()
+    return np.asarray(tree)
+
+
+def curve(opt, n_epochs):
+    """A per-epoch test AUPRC history fixed by the trial's optimizer
+    params: it rises to a peak epoch, then falls (so the pruners fire)."""
+    lr, wd = float(opt["lr"]), float(opt["weight_decay"])
+    base = (lr * 1e4) % 0.5
+    peak = 1 + int(wd * 1e4) % n_epochs
+    return [base + 0.05 * min(e, peak) - 0.04 * max(0, e - peak)
+            for e in range(1, n_epochs + 1)]
+
+
+class FakeResult:
+    def __init__(self, params, bn_state, hists):
+        self.params, self.bn_state = params, bn_state
+        self.auprc_test = hists
+        self.auprc_train = [[0.5 * v for v in h] for h in hists]
+        self.f1_precision_recall = [[[v, v, v] for v in h] for h in hists]
+        self.epochs_run = [len(h) for h in hists]
+
+    @property
+    def final_test_auprc(self):
+        return [h[-1] if h else 0.0 for h in self.auprc_test]
+
+    @property
+    def final_train_auprc(self):
+        return [h[-1] if h else 0.0 for h in self.auprc_train]
+
+
+def fake_fit(calls):
+    """An ``engine.fit`` stand-in for both packages: records its call and
+    reports each trial's :func:`curve` epoch by epoch until pruned."""
+    def fit(spec, hp_list, opt_list, data_train, data_test, cfg, **kw):
+        calls.append({"hp": hp_list, "opt": opt_list, "train": data_train,
+                      "test": data_test, "kw": kw})
+        n = len(hp_list)
+        full = [curve(o, cfg.num_epochs) for o in opt_list]
+        hists, done = [[] for _ in range(n)], [False] * n
+        report = kw.get("report_fn")
+        for e in range(cfg.num_epochs):
+            for t in range(n):
+                if done[t]:
+                    continue
+                hists[t].append(full[t][e])
+                if report is not None and report(t, e + 1, full[t][e]):
+                    done[t] = True
+        init = kw.get("init_params")
+        if init is not None:
+            params = {k: v + 1 for k, v in to_numpy(init).items()
+                      if not isinstance(v, dict)}
+            bn = to_numpy(kw.get("init_bn_state") or {})
+        else:
+            params = {"w": np.asarray([[h[-1], float(o["lr"]), t]
+                                       for t, (h, o) in enumerate(zip(hists, opt_list))],
+                                      np.float32)}
+            bn = {"bn0": {"mean": np.arange(2 * n, dtype=np.float32).reshape(n, 2)}}
+        return FakeResult(params, bn, hists)
+    return fit
+
+
+def plain(x):
+    if isinstance(x, dict):
+        return {k: plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [plain(v) for v in x]
+    if hasattr(x, "idx") and hasattr(x, "mask"):     # a BatchPlan
+        return {"idx": np.asarray(x.idx).tolist(),
+                "mask": np.asarray(x.mask).tolist(),
+                "div": int(x.metric_divisor)}
+    if isinstance(x, (np.ndarray, np.generic)):
+        return np.asarray(x).tolist()
+    return x
+
+
+def same_calls(calls):
+    """Both packages made the same fits: groups, hp and opt lists, data,
+    and per-trial plans."""
+    assert len(calls["jax"]) == len(calls["torch"]) > 0
+    for cj, ct in zip(calls["jax"], calls["torch"]):
+        assert plain(ct["hp"]) == plain(cj["hp"])
+        assert plain(ct["opt"]) == plain(cj["opt"])
+        assert plain(ct["train"]) == plain(cj["train"])
+        assert plain(ct["test"]) == plain(cj["test"])
+        for k in ("train_plans", "eval_plans"):
+            assert plain(ct["kw"].get(k)) == plain(cj["kw"].get(k))
+
+
+def same_checkpoints(dj, dt):
+    names = sorted(os.listdir(dj))
+    assert names == sorted(os.listdir(dt))
+    for name in names:
+        if not name.endswith(".npz"):
+            continue
+        tj, mj = j_load_ck(os.path.join(dj, name))
+        tt, mt = t_load_ck(os.path.join(dt, name))
+        assert mj == mt, name
+        assert plain(tj) == plain(tt), name
+    return names
