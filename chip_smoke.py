@@ -85,16 +85,43 @@ without them.  It
    ``predict`` on the fold-best checkpoint launches the kernel and gives
    rows that sum to 1.  It prints each run's wall, train windows/s and
    launches;
-9. path-shape phase: while the serve, train and CV phases run,
-   ``ShapeLog`` stands in for ``fused_embrace`` and keeps the inputs and
-   output of the first call at each distinct layout the paths give the
-   kernel (balanced train batches of 93-97 rows, eval batches, the bf16
-   population's width buckets; a trial without width buckets docks at the
-   search space's widest D0, D1 and E).  After them the
-   kernel is replayed at each: the same output bit for bit, and the plain
-   version's ``where(choose, d0, d1)``, d0 at p0 = 1 and d1 at p0 = 0
-   within the kernel phase's tolerance;
-10. prints the card's name and power limit, the ``{"kernels": [...]}`` line
+9. models phase, for ConcatNetMultimodal and CNN_LSTM: the widest trial
+   of the search space from seed 0 (ConcatNet: the FFNN and CNN branches
+   of the serve phase's model, 3 post layers of 1024 / 512 / 256; CNN_LSTM:
+   one conv block of 64 channels with 15 taps, an LSTM of 2 layers of
+   hidden size 128, so 1,984 timesteps and a 253,952 x 1000 first FC
+   layer) at 566 features, saved as a checkpoint: its eval forward through
+   ``load_model`` on 512 windows on the card equals the CPU's within
+   1e-4 x max|logit| (float32 products and cuDNN convolutions and LSTM
+   with TF32 off, summed in another order), ``evaluate`` gives finite
+   metrics; one ``engine.fit`` of it (float32, batch 100, 1 epoch on
+   ``make_data``'s 3,000 train and 1,000 test windows): finite history,
+   parameters that moved, and its train windows/s; then
+   ``embracenet_tpu_torch.train`` with 2 folds x 2 TPE trials x 1 epoch
+   on 2,000 windows, finite scores, and ``predict`` of the fold-best
+   checkpoint on 512 windows, card against ``device="cpu"`` within 1e-4.
+   These families have no kernel of their own;
+10. data phase: writes a raw data tree under ``_build/``
+    (``benchkit.write_raw_dataset``: enhancers and promoters of 5,000
+    regions each, HEPG2 with 566 feature columns and K562 with 52, some
+    cells missing, sequences with upper-case bases and ``n``), requires the
+    native runtime (``runtime.available()``), runs ``preprocess`` twice
+    (the second from its cache, equal arrays), then
+    ``train("EmbraceNetMultimodal", "HEPG2", task, pipeline=...)`` with 2
+    folds x 2 TPE trials x 1 epoch: finite scores and kernel launches in
+    every fit; ``predict`` on the fold-best checkpoint.  It prints the
+    ``Pipeline`` wall by stage (load, scale, impute, select, cache) and
+    the CV wall;
+11. path-shape phase: while the serve, train, CV and data phases run,
+    ``ShapeLog`` stands in for ``fused_embrace`` and keeps the inputs and
+    output of the first call at each distinct layout the paths give the
+    kernel (balanced train batches of 93-97 rows, eval batches, the bf16
+    population's width buckets, the selected HEPG2 features; a trial
+    without width buckets docks at the search space's widest D0, D1 and
+    E).  After them the kernel is replayed at each: the same output bit
+    for bit, and the plain version's ``where(choose, d0, d1)``, d0 at
+    p0 = 1 and d1 at p0 = 0 within the kernel phase's tolerance;
+12. prints the card's name and power limit, the ``{"kernels": [...]}`` line
     and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero without the last line.
@@ -115,9 +142,12 @@ import torch
 import embracenet_tpu_torch as et
 from embracenet_tpu_torch.benchkit import (IN_FEATURES, bound, cuda_ms,
                                            graph_ms, make_data, nvidia_smi,
-                                           widest_flat_params)
+                                           widest_concat_flat_params,
+                                           widest_flat_params,
+                                           widest_lstm_flat_params,
+                                           write_raw_dataset)
 from embracenet_tpu_torch.config import CVConfig, TrainConfig
-from embracenet_tpu_torch.convert import tree_to_numpy
+from embracenet_tpu_torch.convert import tree_leaves, tree_to_numpy
 from embracenet_tpu_torch.hpo import space
 from embracenet_tpu_torch.hpo.study import Study
 from embracenet_tpu_torch.models import embracenet
@@ -813,6 +843,190 @@ def cv_phase(workdir):
             "predict": {"wall_s": predict_wall, "launches": predict_launches}}
 
 
+MODELS = ("ConcatNetMultimodal", "CNN_LSTM")
+WIDEST = {"ConcatNetMultimodal": widest_concat_flat_params,
+          "CNN_LSTM": widest_lstm_flat_params}
+# the models phase: the eval windows held card against CPU, the fit's
+# windows (make_data's 3,000 train and 1,000 test) and the CV's
+MODEL_EVAL_WINDOWS, MODEL_CV_WINDOWS = 512, 2000
+# the data phase: regions per family, the cell lines' widths (HEPG2 566
+# features, as in the survey; a second line of 52) and the task
+DATA_REGIONS = 5000
+DATA_WIDTHS = {"HEPG2": 566, "K562": 52}
+DATA_TASK = "active_E_vs_inactive_E"
+
+
+def max_rel_err(got, want):
+    """max |got - want| over max |want|."""
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def model_phase(model, workdir):
+    """The widest trial of ``model`` from seed 0: its eval forward on the
+    card against the CPU, one ``engine.fit``, then ``train`` with 2 folds x
+    2 trials and ``predict`` on the fold-best checkpoint, card against
+    CPU."""
+    flat = WIDEST[model]()
+    hp = space.params_to_hp(model, flat)
+    spec = get_spec(model, in_features_ffnn=IN_FEATURES)
+    params, bn = spec.init(torch.Generator().manual_seed(0), hp)
+    data = make_data(4000, IN_FEATURES, np.random.default_rng(0))
+    path = os.path.join(workdir, f"{model}_widest")
+    save_checkpoint(path, {"params": params, "bn_state": bn},
+                    {"model": model, "model_params": flat})
+    window = {k: v[:MODEL_EVAL_WINDOWS] for k, v in data.items()}
+
+    # -- the widest trial's eval forward: card against CPU --
+    t0 = time.perf_counter()
+    card = load_model(path)(window, logits=True)
+    card_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_model = load_model(path, device="cpu")
+    cpu_model.BATCH = MODEL_EVAL_WINDOWS   # no padding to 4096 rows
+    cpu = cpu_model(window, logits=True)
+    cpu_wall = time.perf_counter() - t0
+    forward_err = max_rel_err(card, cpu)
+    require(np.isfinite(card).all() and forward_err <= 1e-4,
+            f"{model}: card logits off the CPU's by {forward_err} of max")
+    metrics = et.evaluate(path, window)
+    require(all(math.isfinite(v) for v in metrics.values()),
+            f"{model}: evaluate {metrics}")
+
+    # -- one engine.fit of it: float32, batch 100, 1 epoch --
+    train = {k: v[:3000] for k, v in data.items()}
+    test = {k: v[3000:] for k, v in data.items()}
+    init = tree_to_numpy(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.fit(spec, [hp], [space.optimizer_hp(flat)], train, test,
+                     TrainConfig(num_epochs=1, epoch_chunk=1, batch_size=100),
+                     init_params=engine.stack_trials([params]),
+                     init_bn_state=engine.stack_trials([bn]))
+    fit_wall = time.perf_counter() - t0
+    hist = res.loss_train[0] + res.auprc_train[0] + res.auprc_test[0]
+    require(res.epochs_run == [1] and all(math.isfinite(v) for v in hist),
+            f"{model}: fit history {hist}")
+    trained = tree_to_numpy(res.params)
+    moved = max(float(np.abs(a[0] - b).max()) for a, b in zip(
+        tree_leaves(trained), tree_leaves(init)))
+    require(moved > 0, f"{model}: no parameter moved")
+    loss_train = res.loss_train[0]
+    del res, trained
+
+    # -- train: 2 folds x 2 TPE trials x 1 epoch, then predict --
+    cv_data = {k: v[:MODEL_CV_WINDOWS] for k, v in data.items()}
+    t0 = time.perf_counter()
+    scores = et.train(model, CV_CELL, CV_TASK, data=cv_data,
+                      cv_cfg=CVConfig(n_folds=2, n_trials=2, sampler="TPE"),
+                      train_cfg=TrainConfig(num_epochs=1, epoch_chunk=1,
+                                            batch_size=100),
+                      storage=os.path.join(workdir, f"{model}.db"),
+                      checkpoint_dir=os.path.join(workdir, model))
+    cv_wall = time.perf_counter() - t0
+    finals = scores["final_test_AUPRC_scores"]
+    require(len(finals) == 2 and all(math.isfinite(v) for v in finals),
+            f"{model}: CV final scores {finals}")
+    best = os.path.join(workdir, model,
+                        checkpoint_name(CV_CELL, model, CV_TASK, 0))
+    t0 = time.perf_counter()
+    card = et.predict(best, window)
+    predict_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = et.predict(best, window, device="cpu")
+    predict_cpu_wall = time.perf_counter() - t0
+    predict_err = float(np.abs(card - cpu).max())
+    require(predict_err <= 1e-4, f"{model}: fold-best predict on the card "
+            f"off the CPU's by {predict_err}")
+    return {"model": model, "flat": flat,
+            "forward_card_vs_cpu_rel": forward_err,
+            "forward_512_wall_s": card_wall, "forward_512_cpu_wall_s": cpu_wall,
+            "evaluate": metrics,
+            "fit": {"wall_s": fit_wall,
+                    "train_windows_per_s": len(train["y"]) / fit_wall,
+                    "loss_train": loss_train, "max_param_move": moved},
+            "cv": {"windows": MODEL_CV_WINDOWS, "wall_s": cv_wall,
+                   "final_test_AUPRC": finals,
+                   "average_CV_AUPRC": scores["average_CV_AUPRC"]},
+            "predict": {"wall_s": predict_wall, "cpu_wall_s": predict_cpu_wall,
+                        "card_vs_cpu_max_abs": predict_err}}
+
+
+def data_phase(workdir):
+    """Raw files -> ``preprocess`` (built, then from its cache) ->
+    ``train(pipeline=...)`` of EmbraceNetMultimodal on the card ->
+    ``predict`` on the fold-best checkpoint."""
+    from embracenet_tpu_torch import runtime
+
+    root = os.path.join(workdir, "data")
+    t0 = time.perf_counter()
+    write_raw_dataset(root, DATA_REGIONS, DATA_WIDTHS, seed=0)
+    write_wall = time.perf_counter() - t0
+    require(runtime.available(), "data: the native runtime did not build: "
+            f"{runtime.BUILD_ERROR}")
+    cache = os.path.join(workdir, "cache")
+    t0 = time.perf_counter()
+    pipe = et.preprocess(DATA_TASK, root=root, cache_dir=cache)
+    pipe_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = et.preprocess(DATA_TASK, root=root, cache_dir=cache)
+    cached_wall = time.perf_counter() - t0
+    require(again.walls["load"] == 0 and again.cells() == pipe.cells()
+            == sorted(DATA_WIDTHS), "data: the second preprocess did not "
+            "come from the cache")
+    for cell in pipe.cells():
+        a, b = pipe.cell_data(cell), again.cell_data(cell)
+        require(all(np.array_equal(a[k], b[k]) for k in a)
+                and pipe.feature_names[cell] == again.feature_names[cell],
+                f"data: {cell}'s cached arrays differ")
+    data = again.cell_data(CV_CELL)
+    require(data["ffnn"].shape[1] > 0 and np.isfinite(data["ffnn"]).all(),
+            f"data: {CV_CELL} features {data['ffnn'].shape}")
+
+    log = FitLog()
+    engine.fit = log
+    try:
+        K.LAUNCHES = 0
+        t0 = time.perf_counter()
+        scores = et.train(CV_MODEL, CV_CELL, DATA_TASK, pipeline=again,
+                          cv_cfg=CVConfig(n_folds=2, n_trials=2, sampler="TPE"),
+                          train_cfg=TrainConfig(num_epochs=1, epoch_chunk=1,
+                                                batch_size=100),
+                          storage=os.path.join(workdir, "data.db"),
+                          checkpoint_dir=os.path.join(workdir, "data_models"))
+        cv_wall = time.perf_counter() - t0
+        launches = K.LAUNCHES
+    finally:
+        engine.fit = log.real
+    require([f["kind"] for f in log.fits] == ["search", "retrain"] * 2
+            and all(f["launches"] > 0 for f in log.fits),
+            f"data: fits {[(f['kind'], f['launches']) for f in log.fits]}")
+    finals = scores["final_test_AUPRC_scores"] + scores["final_train_AUPRC_scores"]
+    require(all(math.isfinite(v) for v in finals), f"data: scores {finals}")
+    best = os.path.join(workdir, "data_models",
+                        checkpoint_name(CV_CELL, CV_MODEL, DATA_TASK, 0))
+    K.LAUNCHES = 0
+    probs = et.predict(best, data)
+    predict_launches = K.LAUNCHES
+    require(predict_launches > 0 and probs.shape == (len(data["y"]), 2)
+            and bool(np.isfinite(probs).all())
+            and bool(np.abs(probs.sum(1) - 1).max() <= 1e-5),
+            "data: fold-best predictions must be finite rows that sum to 1")
+    return {"launches": launches + predict_launches,
+            "regions_per_family": DATA_REGIONS, "widths": DATA_WIDTHS,
+            "write_raw_wall_s": write_wall,
+            "pipeline_wall_s": pipe_wall, "pipeline_stage_wall_s": pipe.walls,
+            "pipeline_cached_wall_s": cached_wall,
+            "selected_features": {c: int(pipe.features[c].shape[1])
+                                  for c in pipe.cells()},
+            "windows": int(len(data["y"])), "positives": int(data["y"].sum()),
+            "cv": {"wall_s": cv_wall, "launches": launches,
+                   "fits": [{k: f[k] for k in ("kind", "trials", "launches",
+                                               "wall_s", "windows")}
+                            for f in log.fits],
+                   "final_test_AUPRC": scores["final_test_AUPRC_scores"]},
+            "predict_launches": predict_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's smoke test "
@@ -825,11 +1039,20 @@ def main() -> int:
                       "cuda": torch.version.cuda,
                       "device": torch.cuda.get_device_name(0)}), flush=True)
 
+    walls, clock = {}, [time.perf_counter()]
+
+    def lap(phase):
+        """Record the wall since the last lap as ``phase``'s."""
+        now = time.perf_counter()
+        walls[phase] = now - clock[0]
+        clock[0] = now
+
     t0 = time.perf_counter()
     K.build()
     K._load()
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "nvcc_s": K.BUILD_SECONDS}), flush=True)
+    lap("build")
     for line in K.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("ptxas:", line.strip(), flush=True)
@@ -841,14 +1064,17 @@ def main() -> int:
             case = kernel_case(shape, dtype, dev, gen)
             cases.append(case)
             print(json.dumps({"kernel_case": case, "card": card}), flush=True)
+    lap("kernel")
     for shape in SHAPES + BENCH + EDGES:
         for dtype in (torch.float32, torch.bfloat16):
             case = fulle_case(shape, dtype, dev, gen)
             fulle_cases.append(case)
             print(json.dumps({"kernel_fulle_case": case, "card": card}), flush=True)
+    lap("kernel_fulle")
     for shape in (MAIN, TRAIN):
         grads = grad_phase(shape, dev, gen)
         print(json.dumps({"gradient": grads, "card": card}), flush=True)
+    lap("gradient")
 
     build_dir = os.path.join(REPO, "embracenet_tpu_torch", "_build")
     shapes = ShapeLog()
@@ -857,12 +1083,15 @@ def main() -> int:
         with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
             serve = serve_phase(workdir)
         print(json.dumps({"serve": serve, "card": card}), flush=True)
+        lap("serve")
         train = train_phase()
         print(json.dumps({"train": train, "card": card}), flush=True)
+        lap("train")
     finally:
         K.fused_embrace = shapes.real
     bench_out = bench_phase()
     print(json.dumps({"bench": bench_out, "card": card}), flush=True)
+    lap("bench")
     K.fused_embrace = shapes
     try:
         with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
@@ -870,11 +1099,28 @@ def main() -> int:
     finally:
         K.fused_embrace = shapes.real
     print(json.dumps({"cv": cv, "card": card}), flush=True)
+    lap("cv")
+    with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
+        for model in MODELS:
+            out = model_phase(model, workdir)
+            print(json.dumps({"models": out, "card": card}), flush=True)
+            lap(f"models_{model}")
+    K.fused_embrace = shapes
+    try:
+        with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
+            data_out = data_phase(workdir)
+    finally:
+        K.fused_embrace = shapes.real
+    print(json.dumps({"data": data_out, "card": card}), flush=True)
+    lap("data")
 
-    # -- the kernel at every layout the serve, train and CV phases gave it --
+    # -- the kernel at every layout the serve, train, CV and data phases
+    # gave it --
     path_cases = [path_case(key, rec, dev) for key, rec in shapes.seen.items()]
     shapes.seen.clear()
     print(json.dumps({"path_cases": path_cases, "card": card}), flush=True)
+    lap("path_shapes")
+    print(json.dumps({"phase_walls_s": walls, "card": card}), flush=True)
 
     def row(name, source_line, launches, cs):
         main_f32 = cs[0]
@@ -892,7 +1138,8 @@ def main() -> int:
     print(card, flush=True)
     print(json.dumps({"kernels": [
         row("embrace_fused_fwd", 39,
-            serve["launches"] + train["launches"] + cv["launches"],
+            serve["launches"] + train["launches"] + cv["launches"]
+            + data_out["launches"],
             cases + path_cases),
         row("embrace_fused_fwd_fulle", 78, bench_out["launches_fulle"],
             fulle_cases)]}), flush=True)

@@ -9,13 +9,14 @@ becomes a kernel written by hand for Hopper under ``csrc/``.
 Entry points run on the CUDA card.  Without one they raise unless the
 caller asks for ``device="cpu"``; there is no silent CPU fallback.
 
-Ported so far: checkpoint serving (``predict`` / ``evaluate``),
-population training (``training.engine.fit``) and the whole search-and-CV
-workflow (``train``: K-fold CV, a hyperparameter search per fold on a
-SQLite study, the best trial's retrain, scores and checkpoints) for the
-FFNN, CNN and EmbraceNetMultimodal families, with EmbraceNet's docking and
-stochastic embracement in the fused CUDA kernels and their gradient
-(``ops/embrace.py``).
+Ported so far: the data layer (``preprocess``: raw CSV / BED / FASTA files
+to cached, scaled, imputed and selected per-cell-line arrays), checkpoint
+serving (``predict`` / ``evaluate``), population training
+(``training.engine.fit``) and the whole search-and-CV workflow (``train``:
+K-fold CV, a hyperparameter search per fold on a SQLite study, the best
+trial's retrain, scores and checkpoints) for all five model families, with
+EmbraceNet's docking and stochastic embracement in the fused CUDA kernels
+and their gradient (``ops/embrace.py``).
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ def resolve_device(device=None):
 
 def __getattr__(name):
     # Lazy: the api module pulls in the model stack.
-    if name in ("train", "predict", "evaluate"):
+    if name in ("preprocess", "train", "predict", "evaluate"):
         from embracenet_tpu_torch import api
 
         return getattr(api, name)
@@ -72,6 +73,7 @@ __all__ = [
     "N_CLASSES",
     "default_device",
     "resolve_device",
+    "preprocess",
     "train",
     "predict",
     "evaluate",

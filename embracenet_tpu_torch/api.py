@@ -1,13 +1,16 @@
-"""Entry points (port of ``train``, ``predict`` and ``evaluate`` from
-``embracenet_tpu/api.py``).
+"""Entry points (port of ``preprocess``, ``train``, ``predict`` and
+``evaluate`` from ``embracenet_tpu/api.py``).
 
   >>> import embracenet_tpu_torch as et
+  >>> pipe = et.preprocess("active_P_vs_inactive_P", root="data")
   >>> scores = et.train("EmbraceNetMultimodal", "K562",
-  ...                   "active_P_vs_inactive_P", data=data)
-  >>> probs = et.predict("models/K562_EmbraceNetMultimodal_..._test_", data)
-  >>> metrics = et.evaluate("models/...", data)
+  ...                   "active_P_vs_inactive_P", pipeline=pipe)
+  >>> probs = et.predict("models/K562_EmbraceNetMultimodal_..._test_",
+  ...                    pipe.cell_data("K562"))
+  >>> metrics = et.evaluate("models/...", pipe.cell_data("K562"))
 
-All run on the card unless the caller passes ``device="cpu"``.
+``preprocess`` runs on the host; the others run on the card unless the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from embracenet_tpu_torch.config import CVConfig, MeshConfig, TrainConfig
+from embracenet_tpu_torch.data.pipeline import Pipeline
 from embracenet_tpu_torch.models.reload import load_model
 from embracenet_tpu_torch.training.cv import KfoldCV, checkpoint_name
 from embracenet_tpu_torch.training.results import ResultsDict, baseline_auprc
@@ -41,8 +45,17 @@ def resolve_mesh(mesh, device=None):
                               "item 8 (multi-device)")
 
 
+def preprocess(task: str, root: str = "data", dataset: dict | None = None,
+               cache_dir: str | None = ".embracenet_cache",
+               verbose: bool = False, **kwargs) -> Pipeline:
+    """Load raw data, build the task, scale/impute/select features; cached
+    (the cache file is shared with the JAX package)."""
+    return Pipeline(task=task, root=root, dataset=dataset,
+                    cache_dir=cache_dir, verbose=verbose, **kwargs)
+
+
 def train(model: str, cell_line: str, task: str,
-          pipeline=None, data: dict | None = None,
+          pipeline: Pipeline | None = None, data: dict | None = None,
           cv_cfg: CVConfig = CVConfig(), train_cfg: TrainConfig = TrainConfig(),
           augmentation: bool | None = None,
           results: ResultsDict | None = None,
@@ -53,10 +66,10 @@ def train(model: str, cell_line: str, task: str,
     """K-fold CV with per-fold HPO for one (model, cell, task); returns the
     reference-shaped scores dict and records it into ``results`` if given.
 
-    ``data``: {"ffnn": [N, D] float, "cnn": [N, 256] uint8 codes, "y"}.
-    The data layer (``preprocess`` / ``Pipeline``) is not ported yet
-    (ROADMAP.md Queue 1 item 6), so ``data`` is required and a
-    ``pipeline`` raises.
+    ``data``: {"ffnn": [N, D] float, "cnn": [N, 256] uint8 codes, "y"};
+    with caller-supplied ``data``, ``cell_line`` and ``task`` are labels
+    only.  ``data=None`` takes the cell line from ``pipeline``, or from
+    ``preprocess(task)`` when no pipeline is given.
 
     ``mesh``: see :func:`resolve_mesh`; only the single-device path runs.
 
@@ -67,12 +80,17 @@ def train(model: str, cell_line: str, task: str,
     Every fit runs on the card unless ``device`` says otherwise
     (``"cpu"``)."""
     mesh = resolve_mesh(mesh, device)
-    if data is None or pipeline is not None:
-        raise NotImplementedError(
-            "train(pipeline=..., data=None) loads the cell line through the "
-            "data layer (Pipeline), which is not ported to PyTorch yet: "
-            "ROADMAP.md Queue 1 item 6 (data layer); pass "
-            "data={'ffnn', 'cnn', 'y'} and no pipeline")
+    if data is None:
+        from embracenet_tpu_torch import CELL_LINES, TASKS
+
+        if cell_line not in CELL_LINES:
+            raise ValueError(f"unknown cell line {cell_line!r}; "
+                             f"expected one of {CELL_LINES}")
+        if task not in TASKS:
+            raise ValueError(f"unknown task {task!r}; expected one of {TASKS}")
+        if pipeline is None:
+            pipeline = preprocess(task)
+        data = pipeline.cell_data(cell_line)
     if augmentation is not None:
         cv_cfg = dataclasses.replace(cv_cfg, augmentation=augmentation)
     label = model_label or model

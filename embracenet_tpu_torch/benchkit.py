@@ -1,21 +1,25 @@
 """What the card-side scripts share: the H100 peak rates and the fused
 forward's bound, CUDA-event timing (eager, and of a replayed CUDA
-graph), the card's ``nvidia-smi`` line, and the widest model and
-learnable data they drive.
+graph), the card's ``nvidia-smi`` line, the widest model of each family,
+and the learnable data and raw data files they drive.
 
-Used by ``chip_smoke.py``, ``tools/torch_embrace_bench.py`` and
-``tools/torch_serve_profile.py``; nothing in the training or serving path
-imports it.
+Used by ``chip_smoke.py``, ``tools/torch_embrace_bench.py``,
+``tools/torch_serve_profile.py`` and the port's tests; nothing in the
+training or serving path imports it.
 """
 
 from __future__ import annotations
 
+import os
 import subprocess
 
 import numpy as np
 import torch
 
 from embracenet_tpu_torch.config import (CNN_CHANNEL_MENUS, CNN_KERNEL_MENU,
+                                         CNN_LSTM_HIDDEN_MENU,
+                                         CNN_LSTM_MAX_LSTM_LAYERS,
+                                         CONCAT_POST_WIDTH_MENUS,
                                          EMBRACE_POST_WIDTH_MENUS,
                                          FFNN_WIDTH_MENUS, EMBRACE_SIZE_MENU)
 
@@ -113,3 +117,90 @@ def widest_flat_params(p_ffnn: float) -> dict:
     for i, menu in enumerate(EMBRACE_POST_WIDTH_MENUS):
         flat[f"EMBRACENET_n_units_l{i}"] = max(menu)
     return flat
+
+
+def widest_concat_flat_params() -> dict:
+    """The widest ConcatNetMultimodal of the search space: the FFNN and CNN
+    branches of :func:`widest_flat_params`, 3 post layers of 1024 / 512 /
+    256, Adam lr 1e-3."""
+    flat = {k: v for k, v in widest_flat_params(0.5).items()
+            if k.startswith(("FFNN_", "CNN_")) or k in ("optimizer", "lr",
+                                                        "weight_decay")}
+    flat["CONCATNET_n_post_layers"] = len(CONCAT_POST_WIDTH_MENUS)
+    for i, menu in enumerate(CONCAT_POST_WIDTH_MENUS):
+        flat[f"CONCATNET_n_units_l{i}"] = max(menu)
+    return flat
+
+
+def widest_lstm_flat_params() -> dict:
+    """The widest CNN_LSTM of the search space: one conv block of 64
+    channels (the most timesteps: 64 * 124 / 4 = 1,984) with 15 taps, an
+    LSTM of 2 layers of hidden size 128, Adam lr 1e-3."""
+    return {"n_layers": 1, "out_channels_l0": max(CNN_CHANNEL_MENUS[0]),
+            "kernel_size_l0": max(CNN_KERNEL_MENU),
+            "LSTM_hidden_layer_size": max(CNN_LSTM_HIDDEN_MENU),
+            "LSTM_n_layers": CNN_LSTM_MAX_LSTM_LAYERS,
+            "optimizer": "Adam", "lr": 1e-3, "weight_decay": 1e-4}
+
+
+def write_raw_dataset(root: str, n_regions, widths: dict, seed: int = 0,
+                      prevalence: float = 0.3, nan_columns: int = 3,
+                      nan_share: float = 0.02) -> None:
+    """Write a raw data tree in the reference's layout:
+    ``root/{enhancers,promoters}/`` each with a ``<CELL>.csv`` per cell line
+    of ``widths`` (cell -> feature count), one ``.bed`` of labels and one
+    sequence-first ``.fa`` of 256-bp windows; ``n_regions`` counts the
+    regions of each family (an int, or a pair: enhancers, promoters).
+
+    Features are N(0, 1), written with 10 significant digits, with a label
+    shift of 0.1-0.5 in 60 % of the columns, a near copy of column 0 in
+    column 1 (for the redundancy filter), and ``nan_share`` of the cells of
+    ``nan_columns`` columns missing, written alternately empty and ``NA``
+    (so imputation runs).
+    Sequences mix lower- and upper-case bases with 1 % ``n``."""
+    rng = np.random.default_rng(seed)
+    counts = (n_regions, n_regions) if np.isscalar(n_regions) else n_regions
+    for family, n in zip(("enhancers", "promoters"), counts):
+        d = os.path.join(root, family)
+        os.makedirs(d, exist_ok=True)
+        start = np.arange(n) * 300
+        labels = {}
+        for cell, width in widths.items():
+            y = (rng.random(n) < prevalence).astype(np.int64)
+            x = rng.normal(size=(n, width))
+            n_signal = int(0.6 * width)
+            x[:, :n_signal] += np.outer(y, rng.uniform(0.1, 0.5, n_signal))
+            x[:, 1] = 1.5 * x[:, 0] + 0.01 * rng.normal(size=n)
+            missing = {}           # row -> {column: the cell's text}
+            for j in range(2, 2 + min(nan_columns, width - 2)):
+                rows = np.flatnonzero(rng.random(n) < nan_share)
+                for k, i in enumerate(rows):
+                    missing.setdefault(i, {})[j] = "NA" if k % 2 else ""
+            row_fmt = ",".join(["%.10g"] * width)
+            with open(os.path.join(d, f"{cell}.csv"), "w") as fh:
+                fh.write(",".join(["chrom", "chromStart", "chromEnd", "strand"]
+                                  + [f"f{j}" for j in range(width)]) + "\n")
+                for i in range(n):
+                    if i in missing:
+                        cells = ["%.10g" % v for v in x[i]]
+                        for j, text in missing[i].items():
+                            cells[j] = text
+                        values = ",".join(cells)
+                    else:
+                        values = row_fmt % tuple(x[i])
+                    fh.write(f"chr1,{start[i]},{start[i] + 256},+,{values}\n")
+            labels[cell] = y
+        with open(os.path.join(d, f"{family}.bed"), "w") as fh:
+            fh.write("\t".join(["chrom", "chromStart", "chromEnd", *labels])
+                     + "\n")
+            for i in range(n):
+                fh.write("\t".join([f"chr1\t{start[i]}\t{start[i] + 256}"]
+                                   + [str(v[i]) for v in labels.values()])
+                         + "\n")
+        bases = np.frombuffer(b"acgtACGTn", np.uint8)
+        p = np.r_[np.full(4, 0.2), np.full(4, 0.0475), 0.01]
+        seqs = rng.choice(bases, size=(n, 256), p=p / p.sum())
+        with open(os.path.join(d, f"{family}.fa"), "w") as fh:
+            for i in range(n):
+                fh.write(seqs[i].tobytes().decode() + "\n")
+                fh.write(f">chr1:{start[i]}-{start[i] + 256}\n")

@@ -12,10 +12,28 @@ import torch
 
 
 def tree_map(fn, *trees):
-    """``fn`` over the leaves of nested dicts with one structure."""
+    """``fn`` over the leaves of nested dicts, lists and tuples with one
+    structure (lists and tuples are nodes, as in ``jax.tree.map``: CNN_LSTM
+    keeps its LSTM layers in a list)."""
     if isinstance(trees[0], dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], (list, tuple)):
+        return type(trees[0])(tree_map(fn, *(t[i] for t in trees))
+                              for i in range(len(trees[0])))
     return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in :func:`tree_map`'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure with ``leaves`` (in :func:`tree_leaves`' order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
 
 
 def tree_to_torch(tree, device=None):

@@ -6,10 +6,12 @@ t=3``, alphabetical channel order as in the reference's ``OneHotEncoder``,
 device by :func:`one_hot`.  ``n`` (unknown base) becomes a uniformly random
 base at encode time (`data_pipe/utils.py:272-274`).
 
-This slice ports the numpy encoder only; the JAX package's native C++
-encoder (``runtime/ioaccel.cpp``) is host code that a later slice brings
-over.  The numpy path is the one the JAX package uses with
-``native=False``, so both give identical codes for the same generator.
+The native C++ encoder (``runtime/ioaccel.cpp``) runs when it builds and
+the numpy path otherwise, as in the JAX package; the two fill ``n`` bases
+from different streams (xorshift seeded with the integer seed, numpy's
+generator), and each equals the JAX package's path of the same kind, so
+both packages encode a sequence with ``n`` bases to the same codes
+whenever they take the same path.
 """
 
 from __future__ import annotations
@@ -26,11 +28,24 @@ for _i, _b in enumerate(BASE_ORDER):
     _LUT[ord(_b.upper())] = _i
 
 
-def encode_sequences(seqs, rng: np.random.Generator | int = 0) -> np.ndarray:
-    """Encode an iterable of equal-length DNA strings to uint8 codes [N, L]."""
+def encode_sequences(seqs, rng: np.random.Generator | int = 0,
+                     native: bool = True) -> np.ndarray:
+    """Encode an iterable of equal-length DNA strings to uint8 codes [N, L].
+
+    ``native`` takes the C++ encoder when the runtime is available (an int
+    ``rng`` seeds its stream; a generator counts as seed 0, as in the JAX
+    package); otherwise, or with ``native=False``, numpy's generator fills
+    the unknown bases."""
     seqs = list(seqs)
     if not seqs:
         return np.zeros((0, 0), dtype=np.uint8)
+    if native:
+        from embracenet_tpu_torch import runtime
+
+        seed = rng if isinstance(rng, (int, np.integer)) else 0
+        out = runtime.encode_sequences_native(seqs, seed=int(seed))
+        if out is not None:
+            return out
     if isinstance(rng, (int, np.integer)):
         rng = np.random.default_rng(int(rng))
     length = len(seqs[0])

@@ -50,6 +50,21 @@ def _highest_matmul_precision():
         torch.set_float32_matmul_precision(prev)
 
 
+@contextlib.contextmanager
+def exact_float32():
+    """Full float32 for everything run inside, backward passes included:
+    cuDNN convolutions and RNNs with TF32 off and deterministic algorithms
+    only, matmuls at "highest".  The settings are global and read when a
+    kernel is picked, so a backward pass taken outside the forward's
+    context (autograd runs it later) must be inside one of its own.
+    Without TF32, cuDNN's heuristics may pick a weight-gradient algorithm
+    that sums with atomics, and two runs of one fit would then differ."""
+    with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                    deterministic=True, allow_tf32=False), \
+            _highest_matmul_precision():
+        yield
+
+
 def torch_uniform_init(generator: torch.Generator, shape, fan_in) -> torch.Tensor:
     """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) — torch Linear/Conv1d default."""
     bound = 1.0 / max(float(fan_in), 1.0) ** 0.5

@@ -28,15 +28,18 @@ from torch import nn
 from embracenet_tpu_torch import resolve_device
 from embracenet_tpu_torch.convert import tree_to_torch
 from embracenet_tpu_torch.hpo import space as space_mod
-from embracenet_tpu_torch.training.checkpoint import load_checkpoint
+from embracenet_tpu_torch.training.checkpoint import (_LIST_MARK, load_checkpoint,
+                                                     restore_lists)
 from embracenet_tpu_torch.training.modelspec import get_spec
 
 _SEP = "__"  # buffer names may not contain "."
 
 
 def _flat_items(tree, prefix=""):
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    items = (tree.items() if isinstance(tree, dict)
+             else ((f"{_LIST_MARK}{i}", v) for i, v in enumerate(tree)))
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
             yield from _flat_items(v, f"{prefix}{k}{_SEP}")
         else:
             yield f"{prefix}{k}", v
@@ -78,7 +81,7 @@ class ReloadedModel(nn.Module):
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = t
-        return out
+        return restore_lists(out)
 
     @property
     def params(self) -> dict:

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from embracenet_tpu_torch.convert import tree_map
+from embracenet_tpu_torch.convert import tree_leaves, tree_map, tree_unflatten
 
 ADAM, NADAM, RMSPROP = 0, 1, 2
 OPTIMIZER_IDS = {"Adam": ADAM, "Nadam": NADAM, "RMSprop": RMSPROP}
@@ -43,9 +43,7 @@ def init_state(params, state_dtype=None, master: bool = False, lead=()):
     """Optimizer state: per-leaf (m, v) zeros, ``step`` 0 and
     ``m_schedule`` 1 of shape ``lead`` on the params' device; with
     ``master`` a float32 copy of ``params``."""
-    leaves = []
-    tree_map(leaves.append, params)
-    dev = leaves[0].device
+    dev = tree_leaves(params)[0].device
     state = {
         "m": tree_map(lambda p: torch.zeros_like(p, dtype=state_dtype or p.dtype), params),
         "v": tree_map(lambda p: torch.zeros_like(p, dtype=state_dtype or p.dtype), params),
@@ -100,10 +98,11 @@ def apply_update(params, grads, state, opt_id, lr, weight_decay):
         return new_w.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype), new_w
 
     masters = [state["master"]] if "master" in state else []
-    out = tree_map(leaf_update, params, grads, state["m"], state["v"], *masters)
-    new_state = {"m": tree_map(lambda o: o[1], out),
-                 "v": tree_map(lambda o: o[2], out),
+    out = [leaf_update(*leaves) for leaves in zip(*(
+        tree_leaves(t) for t in (params, grads, state["m"], state["v"], *masters)))]
+    new_state = {"m": tree_unflatten(params, [o[1] for o in out]),
+                 "v": tree_unflatten(params, [o[2] for o in out]),
                  "step": step, "m_schedule": m_sched_new}
     if masters:
-        new_state["master"] = tree_map(lambda o: o[3], out)
-    return tree_map(lambda o: o[0], out), new_state
+        new_state["master"] = tree_unflatten(params, [o[3] for o in out])
+    return tree_unflatten(params, [o[0] for o in out]), new_state

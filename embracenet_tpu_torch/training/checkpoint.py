@@ -34,6 +34,17 @@ def _flatten(tree, prefix=""):
     return out
 
 
+def restore_lists(node):
+    """Nested dicts -> the same with every dict whose keys are all list
+    items (``#0``, ``#1``, ...) turned back into a list."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: restore_lists(v) for k, v in node.items()}
+    if node and all(k.startswith(_LIST_MARK) for k in node):
+        return [node[f"{_LIST_MARK}{i}"] for i in range(len(node))]
+    return node
+
+
 def _unflatten(flat: dict):
     tree: dict = {}
     for key, value in flat.items():
@@ -42,15 +53,6 @@ def _unflatten(flat: dict):
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = value
-
-    def restore_lists(node):
-        if not isinstance(node, dict):
-            return node
-        node = {k: restore_lists(v) for k, v in node.items()}
-        if node and all(k.startswith(_LIST_MARK) for k in node):
-            return [node[f"{_LIST_MARK}{i}"] for i in range(len(node))]
-        return node
-
     return restore_lists(tree)
 
 

@@ -45,7 +45,9 @@ import torch
 
 from embracenet_tpu_torch import resolve_device
 from embracenet_tpu_torch.config import TrainConfig
-from embracenet_tpu_torch.convert import tree_map, tree_to_torch
+from embracenet_tpu_torch.convert import (tree_leaves, tree_map, tree_to_torch,
+                                          tree_unflatten)
+from embracenet_tpu_torch.models.layers import exact_float32
 from embracenet_tpu_torch.ops import losses, metrics, optim
 from embracenet_tpu_torch.training import slicing
 from embracenet_tpu_torch.training.batching import balanced_plan, eval_plan
@@ -197,17 +199,6 @@ def _gather(data, idx, spec: ModelSpec):
     return inputs, data["y"][idx]
 
 
-def _leaves(tree):
-    out = []
-    tree_map(out.append, tree)
-    return out
-
-
-def _unflatten(tree, leaves):
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), tree)
-
-
 def _trial(tree, t: int):
     return tree_map(lambda a: a[t], tree)
 
@@ -230,14 +221,17 @@ def train_step(spec: ModelSpec, params, bn_state, opt_state, hp, opt_hp,
     autograd (the fused kernel's through its Function), optimizer update.
     Returns ``(loss, logits, new_params, new_bn_state, new_opt_state)``;
     the caller decides whether the new state is kept."""
-    leaves = [a.detach().requires_grad_(True) for a in _leaves(params)]
-    live = _unflatten(params, leaves)
-    logits, new_bn = spec.apply(live, bn_state, hp, inputs, True, seed, mask,
-                                compute_dtype, statics)
-    loss = losses.weighted_cross_entropy(logits, y, mask)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    leaves = [a.detach().requires_grad_(True) for a in tree_leaves(params)]
+    live = tree_unflatten(params, leaves)
+    # the backward pass too in full float32: cuDNN would take its
+    # convolutions' and LSTM's gradients in TF32 outside this context
+    with exact_float32():
+        logits, new_bn = spec.apply(live, bn_state, hp, inputs, True, seed,
+                                    mask, compute_dtype, statics)
+        loss = losses.weighted_cross_entropy(logits, y, mask)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     new_params, new_opt = optim.apply_update(
-        params, _unflatten(params, grads), opt_state, opt_hp["optimizer"],
+        params, tree_unflatten(params, grads), opt_state, opt_hp["optimizer"],
         opt_hp["lr"], opt_hp["weight_decay"])
     return (loss.detach(), logits.detach(), new_params,
             tree_map(torch.Tensor.detach, new_bn), new_opt)
@@ -313,11 +307,17 @@ def fit(spec: ModelSpec,
     shrunk = slicing.has_width_statics(statics)
 
     # population init: trial by trial from its own generator, on the host
-    # (the same numbers on either device), then one copy to the device
+    # (the same numbers on either device), then one copy to the device; a
+    # family without fan-ins (CNN_LSTM: shapes follow the trial) inits
+    # from its hyperparameters
     if init_params is None:
-        inits = [spec.init_from_fans(torch.Generator().manual_seed(int(s)),
-                                     spec.fan_ins(hp))
-                 for s, hp in zip(init_seeds, hp_list)]
+        def init_one(seed_, hp):
+            gen = torch.Generator().manual_seed(int(seed_))
+            if spec.init_from_fans is None:
+                return spec.init(gen, hp)
+            return spec.init_from_fans(gen, spec.fan_ins(hp))
+
+        inits = [init_one(s, hp) for s, hp in zip(init_seeds, hp_list)]
         params = stack_trials([i[0] for i in inits])
         bn_state = stack_trials([i[1] for i in inits])
     else:

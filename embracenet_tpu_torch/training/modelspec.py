@@ -17,14 +17,11 @@ import numpy as np
 import torch
 
 from embracenet_tpu_torch.data import codec
-from embracenet_tpu_torch.models import cnn, embracenet, ffnn
+from embracenet_tpu_torch.models import cnn, cnn_lstm, concatnet, embracenet, ffnn
 from embracenet_tpu_torch.models.layers import as_dtype
 
 MODEL_FAMILIES = ("FFNN", "CNN", "CNN_LSTM", "EmbraceNetMultimodal",
                   "ConcatNetMultimodal")
-
-#: families this package does not port yet
-_NOT_PORTED = ("ConcatNetMultimodal", "CNN_LSTM")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,7 +156,59 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
                          init_from_fans=lambda gen, fans: embracenet.init_from_fans(
                              gen, fans, in_features_ffnn))
 
-    if model in _NOT_PORTED:
-        raise NotImplementedError(f"{model} is not ported to PyTorch yet: "
-                                  f"ROADMAP.md Queue 1, 'Remaining models'")
+    if model == "ConcatNetMultimodal":
+        def init(generator, hp):
+            return concatnet.init(generator, hp, in_features_ffnn)
+
+        def apply(params, bn_state, hp, inputs, train, seed, row_mask,
+                  compute_dtype, statics=None):
+            x = _seq_input(inputs, compute_dtype)
+            st = statics or {}
+            return concatnet.apply(params, bn_state, hp, inputs["ffnn"], x,
+                                   train=train, seed=seed, row_mask=row_mask,
+                                   compute_dtype=compute_dtype,
+                                   cnn_max_depth=st.get("cnn_max_depth"),
+                                   cnn_max_channels=st.get("cnn_max_channels"),
+                                   cnn_max_kernels=st.get("cnn_max_kernels"),
+                                   ffnn_max_width=st.get("ffnn_max_width"),
+                                   post_max=st.get("post_max"))
+
+        def statics(hps):
+            out = _cnn_statics(hps)
+            out["ffnn_max_width"] = _ffnn_width(hps)
+            out["post_max"] = _post_width(hps, "post_widths")
+            return out
+
+        return ModelSpec(model, ("ffnn", "cnn"), init, apply, statics,
+                         fan_ins=lambda hp: concatnet.fan_ins(hp, in_features_ffnn),
+                         init_from_fans=lambda gen, fans: concatnet.init_from_fans(
+                             gen, fans, in_features_ffnn))
+
+    if model == "CNN_LSTM":
+        def _arch(hp):
+            return (int(hp["n_layers"]), tuple(int(c) for c in hp["channels"]),
+                    tuple(int(k) for k in hp["kernels"]),
+                    tuple(float(d) for d in hp["dropout"]),
+                    int(hp["lstm_hidden"]), int(hp["lstm_layers"]))
+
+        def statics(hp_list):
+            archs = {_arch(hp) for hp in hp_list}
+            if len(archs) != 1:
+                raise ValueError("CNN_LSTM populations must share one "
+                                 "architecture (shapes are trial-specific); "
+                                 "run trials sequentially")
+            return {"cnn_lstm_arch": archs.pop()}
+
+        def apply(params, bn_state, hp, inputs, train, seed, row_mask,
+                  compute_dtype, statics=None):
+            x = _seq_input(inputs, compute_dtype)
+            return cnn_lstm.apply(params, bn_state, hp, x, train=train,
+                                  seed=seed, row_mask=row_mask,
+                                  compute_dtype=compute_dtype)
+
+        # no fan-ins: parameter shapes follow the trial, so engine.fit
+        # inits each trial through ``init``
+        return ModelSpec(model, ("cnn",), cnn_lstm.init, apply, statics,
+                         vmappable=False)
+
     raise ValueError(f"unknown model family: {model} (use one of {MODEL_FAMILIES})")

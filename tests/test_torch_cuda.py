@@ -267,3 +267,109 @@ def test_run_search_trains_its_trials_on_the_card(cuda, tmp_path):
     assert all(np.isfinite(t.value) and len(t.intermediate) == 2 for t in rows)
     assert res.n_complete == 3 and res.best_model is not None
     assert res.best_value == max(t.value for t in rows)
+
+
+@pytest.mark.parametrize("model,flat", [
+    ("CNN", {"n_layers": 2, "out_channels_l0": 32, "kernel_size_l0": 11,
+             "out_channels_l1": 64, "kernel_size_l1": 5}),
+    ("CNN_LSTM", {"n_layers": 2, "out_channels_l0": 32, "kernel_size_l0": 11,
+                  "out_channels_l1": 64, "kernel_size_l1": 5,
+                  "LSTM_hidden_layer_size": 64, "LSTM_n_layers": 2})])
+def test_training_step_on_the_card_equals_the_cpu(cuda, monkeypatch, model,
+                                                  flat):
+    """``engine.train_step``'s loss and every gradient it hands the
+    optimizer on the card equal the CPU's within 1e-4 of the leaf's largest
+    gradient (float32 summed in another order; TF32 in the backward pass
+    of cuDNN's convolutions or LSTM is ~10x further off).  CNN_LSTM's
+    recurrence runs through cuDNN's LSTM.  Conv biases are left out: a
+    BatchNorm follows each conv, so their gradient is 0 but for rounding."""
+    from embracenet_tpu_torch.convert import tree_to_torch
+    from embracenet_tpu_torch.ops import optim
+
+    def named_leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from named_leaves(v, f"{prefix}{k}/")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from named_leaves(v, f"{prefix}{i}/")
+        else:
+            yield prefix[:-1], tree
+
+    flat = dict(flat, optimizer="Adam", lr=1e-3, weight_decay=1e-4)
+    spec = get_spec(model)
+    hp = space.params_to_hp(model, flat)
+    params, bn = spec.init(torch.Generator().manual_seed(0), hp)
+    rng = np.random.default_rng(0)
+    codes = torch.from_numpy(rng.integers(0, 4, size=(32, 256)).astype(np.uint8))
+    y = torch.from_numpy((rng.random(32) < 0.4).astype(np.int64))
+    seen = {}
+    real = optim.apply_update
+
+    def capture(p, grads, *args):
+        seen["grads"] = {k: None if g is None else g.cpu()
+                         for k, g in named_leaves(grads)}
+        return real(p, grads, *args)
+
+    monkeypatch.setattr(optim, "apply_update", capture)
+    out = []
+    for dev in ("cpu", cuda):
+        p = tree_to_torch(params, dev)
+        loss, logits, _, _, _ = engine.train_step(
+            spec, p, tree_to_torch(bn, dev), optim.init_state(p), hp,
+            space.optimizer_hp(flat), {"cnn": codes.to(dev)}, y.to(dev),
+            torch.ones(32, device=dev), 0, None, spec.statics([hp]))
+        out.append((float(loss), logits.cpu(), seen.pop("grads")))
+    (l_cpu, z_cpu, g_cpu), (l_card, z_card, g_card) = out
+    assert l_card == pytest.approx(l_cpu, rel=1e-5)
+    torch.testing.assert_close(z_card, z_cpu, rtol=1e-4,
+                               atol=1e-4 * float(z_cpu.abs().max()))
+    assert {k: g is None for k, g in g_card.items()} == \
+        {k: g is None for k, g in g_cpu.items()}
+    for name, b in g_cpu.items():
+        # None: a block beyond the trial's depth
+        if b is not None and not name.startswith("conv_b"):
+            torch.testing.assert_close(
+                g_card[name], b, rtol=1e-4, atol=1e-4 * float(b.abs().max()),
+                msg=lambda m, name=name: f"{name}: {m}")
+
+
+def test_cnn_lstm_serves_a_large_batch_in_row_chunks(cuda, monkeypatch):
+    """A batch that the LSTM takes in several row chunks gives the logits
+    of one call."""
+    from embracenet_tpu_torch.models import cnn_lstm
+
+    flat = {"n_layers": 1, "out_channels_l0": 16, "kernel_size_l0": 5,
+            "LSTM_hidden_layer_size": 32, "LSTM_n_layers": 2}
+    from embracenet_tpu_torch.convert import tree_to_torch
+    from embracenet_tpu_torch.data.codec import one_hot
+
+    hp = space.params_to_hp("CNN_LSTM", flat)
+    params, bn = tree_to_torch(cnn_lstm.init(torch.Generator().manual_seed(0),
+                                             hp), cuda)
+    codes = torch.randint(0, 4, (300, 256), device=cuda, dtype=torch.uint8)
+    x = one_hot(codes)
+    whole, _ = cnn_lstm.apply(params, bn, hp, x)
+    monkeypatch.setattr(cnn_lstm, "LSTM_CHUNK", 64 * 496 * 4 * 32 * 2)
+    chunked, _ = cnn_lstm.apply(params, bn, hp, x)
+    torch.testing.assert_close(chunked, whole, rtol=1e-5, atol=1e-6)
+
+
+def test_train_from_a_pipeline_launches_the_kernel_on_the_card(cuda, tmp_path):
+    import embracenet_tpu_torch as et
+    from embracenet_tpu_torch.benchkit import write_raw_dataset
+    from embracenet_tpu_torch.config import CVConfig
+
+    root = str(tmp_path / "data")
+    write_raw_dataset(root, 300, {"HEPG2": 40, "K562": 8})
+    task = "active_P_vs_inactive_P"
+    pipe = et.preprocess(task, root=root, cache_dir=str(tmp_path / "cache"))
+    before = K.LAUNCHES
+    scores = et.train("EmbraceNetMultimodal", "HEPG2", task, pipeline=pipe,
+                      cv_cfg=CVConfig(n_folds=2, n_trials=2),
+                      train_cfg=TrainConfig(num_epochs=1, epoch_chunk=1,
+                                            batch_size=50),
+                      storage=str(tmp_path / "s.db"),
+                      checkpoint_dir=str(tmp_path / "models"))
+    assert K.LAUNCHES > before
+    assert all(np.isfinite(scores["final_test_AUPRC_scores"]))

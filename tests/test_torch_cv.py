@@ -471,13 +471,8 @@ def test_train_runs_embracenet_cv_end_to_end_on_the_cpu(rng, tmp_path):
     np.testing.assert_allclose(probs.sum(1), 1.0, atol=1e-5)
 
 
-def test_train_refuses_what_is_not_ported(rng, tmp_path):
+def test_train_refuses_what_is_not_ported(rng):
     data = _tabular(rng, 60)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tapi.train("FFNN", "HEPG2", "t", data=None, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tapi.train("FFNN", "HEPG2", "t", pipeline=object(), data=data,
-                   storage=str(tmp_path / "p.db"), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tapi.train("FFNN", "HEPG2", "t", data=data, mesh=MeshConfig(2, 1),
                    device="cpu")
@@ -485,10 +480,6 @@ def test_train_refuses_what_is_not_ported(rng, tmp_path):
         tcv.KfoldCV()(data, "FFNN", mesh=object(), device="cpu")
     assert tapi.resolve_mesh("auto", "cpu") is None
     assert tapi.resolve_mesh(MeshConfig(), "cpu") is None
-    with pytest.raises(NotImplementedError, match="ConcatNetMultimodal|ROADMAP"):
-        tapi.train("ConcatNetMultimodal", "HEPG2", "t",
-                   data=dict(data, cnn=np.zeros((60, 256), np.uint8)),
-                   storage=str(tmp_path / "s.db"), device="cpu")
 
 
 def test_a_spec_that_is_not_vmappable_fits_each_architecture_alone(

@@ -120,9 +120,10 @@ def test_one_hot_and_codec(rng):
     codes = rng.integers(0, 4, size=(3, 256)).astype(np.uint8)
     close(tcodec.one_hot(t(codes)), jcodec.one_hot(codes), 0)
     seqs = ["acgtn" * 4, "NNacgtTGCA" * 2]
-    np.testing.assert_array_equal(
-        tcodec.encode_sequences(seqs, 3),
-        jcodec.encode_sequences(seqs, 3, native=False))
+    for native in (False, True):   # numpy's stream, the native xorshift
+        np.testing.assert_array_equal(
+            tcodec.encode_sequences(seqs, 3, native=native),
+            jcodec.encode_sequences(seqs, 3, native=native))
     np.testing.assert_array_equal(tcodec.complement_codes(codes),
                                   jcodec.complement_codes(codes))
 
