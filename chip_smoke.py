@@ -112,7 +112,40 @@ without them.  It
     every fit; ``predict`` on the fold-best checkpoint.  It prints the
     ``Pipeline`` wall by stage (load, scale, impute, select, cache) and
     the CV wall;
-11. path-shape phase: while the serve, train, CV and data phases run,
+11. sweep phase: ``sweep.run_sweep`` on the card over ``make_data``'s
+    4,000 windows at 566 features and 5 % positives from seed 0 (HEPG2,
+    ``active_E_vs_inactive_E``, the five default models, 2 folds x 2 TPE
+    trials x 1 epoch, batch 100).  At 5 % positives the FFNN
+    smote-vs-double contest runs: the results must hold ``FFNN_smote``,
+    ``FFNN_double``, ``FFNN`` (a copy of the winner), ``CNN``,
+    ``ConcatNetMultimodal``, ``EmbraceNetMultimodal`` and
+    ``EmbraceNetMultimodal_augmentation`` with finite scores,
+    ``best_augmentation == "double"`` and the baseline, the results JSON
+    must reload equal, the canonical FFNN checkpoint copies must exist, and
+    the kernel must launch in every fit of both EmbraceNet variants and in
+    no other.  It prints each variant's wall and train windows/s;
+12. report phase, over the sweep's output: ``get_average_auprc_df`` and
+    ``get_standard_dev_df`` equal the results' numbers,
+    ``compare_model_overall_performance`` gives finite p-values, and
+    ``CompareModelsResult(n_folds=1)`` over the four default families'
+    fold-best checkpoints runs on the card inside
+    ``profiling.device_trace`` and ``annotate("compare_models")``: p-values
+    in [0, 1], a bool ``different``, a kernel launch, a trace that names
+    ``embrace_fused_fwd_kernel`` and ``compare_models``; the same
+    comparison again without the trace (the profiler's cost); FFNN, CNN
+    and ConcatNet predict on 512 windows as on the CPU within 1e-4; and
+    ``save_pval_dict`` round-trips with the reference's nesting;
+13. CLI phase, in the data phase's raw tree and cache: ``main(argv)`` of
+    ``python -m embracenet_tpu_torch`` in-process for ``preprocess`` (from
+    the cache, equal to the data phase's ``Pipeline``), ``train`` of
+    EmbraceNet (2 folds x 2 trials x 1 epoch, kernel launches),
+    ``evaluate`` on its fold-best checkpoint, ``sweep`` of FFNN and CNN and
+    ``parity`` against ``BASELINE.md`` (HEPG2's rows for the task); then
+    ``python -m embracenet_tpu_torch preprocess`` and
+    ``examples/torch_quickstart.py --epochs 1`` (in a temporary directory)
+    as subprocesses that must exit with 0;
+14. path-shape phase: while the serve, train, CV, data, sweep, report and
+    CLI phases run,
     ``ShapeLog`` stands in for ``fused_embrace`` and keeps the inputs and
     output of the first call at each distinct layout the paths give the
     kernel (balanced train batches of 93-97 rows, eval batches, the bf16
@@ -121,7 +154,7 @@ without them.  It
     E).  After them the kernel is replayed at each: the same output bit
     for bit, and the plain version's ``where(choose, d0, d1)``, d0 at
     p0 = 1 and d1 at p0 = 0 within the kernel phase's tolerance;
-12. prints the card's name and power limit, the ``{"kernels": [...]}`` line
+15. prints the card's name and power limit, the ``{"kernels": [...]}`` line
     and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero without the last line.
@@ -140,6 +173,7 @@ import numpy as np
 import torch
 
 import embracenet_tpu_torch as et
+from embracenet_tpu_torch import api
 from embracenet_tpu_torch.benchkit import (IN_FEATURES, bound, cuda_ms,
                                            graph_ms, make_data, nvidia_smi,
                                            widest_concat_flat_params,
@@ -1024,7 +1058,315 @@ def data_phase(workdir):
                                                "wall_s", "windows")}
                             for f in log.fits],
                    "final_test_AUPRC": scores["final_test_AUPRC_scores"]},
-            "predict_launches": predict_launches}
+            "predict_launches": predict_launches}, again
+
+
+# the sweep phase: HEPG2's width at the CV phase's prevalence.  4,000
+# windows, because every split of the sweep's 2-fold CV then passes the
+# reference's reverse-strand and augmentation asserts (a ratio of 0.1 to
+# two decimals) in both packages; at 2,400, 3,000, 3,600 or 4,800 windows
+# one split fails them.
+SWEEP_WINDOWS = 4000
+SWEEP_ENTRIES = ("FFNN_smote", "FFNN_double", "FFNN", "CNN",
+                 "ConcatNetMultimodal", "EmbraceNetMultimodal",
+                 "EmbraceNetMultimodal_augmentation")
+# the report phase holds card against CPU predictions on these windows
+REPORT_CPU_WINDOWS = 512
+
+
+class TrainLog:
+    """Wraps ``api.train`` (which ``sweep.run_sweep`` calls through the
+    module) to log, per run, its variant, wall, kernel launches and the
+    ``FitLog`` entries of its fits."""
+
+    def __init__(self, fits: FitLog):
+        self.runs = []
+        self.fits = fits
+        self.real = api.train
+
+    def __call__(self, model, cell_line, task, **kw):
+        first, launches0 = len(self.fits.fits), K.LAUNCHES
+        t0 = time.perf_counter()
+        scores = self.real(model, cell_line, task, **kw)
+        wall = time.perf_counter() - t0
+        fits = self.fits.fits[first:]
+        windows = sum(f["windows"] for f in fits)
+        self.runs.append({"variant": kw.get("model_label") or model,
+                          "wall_s": wall, "launches": K.LAUNCHES - launches0,
+                          "fit_launches": [f["launches"] for f in fits],
+                          "train_windows": windows,
+                          "train_windows_per_s": windows / wall})
+        return scores
+
+
+def finite_scores(entry):
+    values = (entry["final_test_AUPRC_scores"] + entry["final_train_AUPRC_scores"]
+              + [entry["average_CV_AUPRC"]])
+    for key, it in entry.items():
+        if key.startswith("iteration_n_"):
+            values += it["AUPRC_train"] + it["AUPRC_test"] + [
+                v for f1 in it["F1_precision_recall"] for v in f1]
+    return bool(values) and all(math.isfinite(v) for v in values)
+
+
+def sweep_phase(workdir):
+    """``sweep.run_sweep`` on the card: HEPG2, one task, the five default
+    models, 2 folds x 2 TPE trials x 1 epoch; at 5 % positives the FFNN
+    smote-vs-double contest runs."""
+    from embracenet_tpu_torch import sweep
+
+    data = make_data(SWEEP_WINDOWS, IN_FEATURES, np.random.default_rng(0),
+                     prevalence=CV_PREVALENCE)
+    ckdir = os.path.join(workdir, "sweep_models")
+    results_path = os.path.join(workdir, "sweep_results.json")
+    fits = FitLog()
+    runs = TrainLog(fits)
+    engine.fit, api.train = fits, runs
+    try:
+        K.LAUNCHES = 0
+        t0 = time.perf_counter()
+        results = sweep.run_sweep(
+            data_fn=lambda cell, task: data, cells=[CV_CELL], tasks=[CV_TASK],
+            models=sweep.DEFAULT_MODELS,
+            cv_cfg=CVConfig(n_folds=2, n_trials=2, sampler="TPE"),
+            train_cfg=TrainConfig(num_epochs=1, epoch_chunk=1, batch_size=100),
+            results_path=results_path,
+            storage=os.path.join(workdir, "sweep.db"), checkpoint_dir=ckdir,
+            verbose=False)
+        wall = time.perf_counter() - t0
+        launches = K.LAUNCHES
+    finally:
+        engine.fit, api.train = fits.real, runs.real
+    node = results.data[CV_CELL][CV_TASK]
+    require(set(SWEEP_ENTRIES) <= set(node), f"sweep: entries {sorted(node)}")
+    require(node.get("best_augmentation") == "double"
+            and "baseline_AUPRC" in node,
+            f"sweep: best_augmentation {node.get('best_augmentation')!r}, "
+            f"baseline {node.get('baseline_AUPRC')}: the FFNN contest's "
+            "winner was not recorded")
+    require(node["FFNN"] in (node["FFNN_smote"], node["FFNN_double"]),
+            "sweep: the FFNN entry is no copy of a variant's")
+    for name in SWEEP_ENTRIES:
+        require(finite_scores(node[name]), f"sweep: {name}'s scores not finite")
+    require(ResultsDict(results_path).data == results.data,
+            "sweep: the results JSON does not reload equal")
+    canonical = [checkpoint_name(CV_CELL, "FFNN", CV_TASK, 0) + ".npz"] + [
+        f"{CV_CELL}_{CV_TASK}_FFNN_fold{f}_result.npz" for f in (1, 2)]
+    missing = [n for n in canonical if not os.path.exists(os.path.join(ckdir, n))]
+    require(not missing, f"sweep: canonical FFNN copies missing: {missing}")
+    variants = [r["variant"] for r in runs.runs]
+    require(variants == ["FFNN_smote", "FFNN_double", "CNN",
+                         "ConcatNetMultimodal", "EmbraceNetMultimodal",
+                         "EmbraceNetMultimodal_augmentation"],
+            f"sweep: variants {variants}")
+    for r in runs.runs:
+        embrace = r["variant"].startswith("EmbraceNet")
+        require(r["fit_launches"] and all(
+            (n > 0) == embrace for n in r["fit_launches"]),
+            f"sweep: {r['variant']}'s fits launched {r['fit_launches']} kernels")
+    return {"launches": launches, "wall_s": wall, "windows": SWEEP_WINDOWS,
+            "positives": int(data["y"].sum()), "variants": runs.runs,
+            "best_augmentation": node["best_augmentation"],
+            "winner": "double" if node["FFNN"] == node["FFNN_double"] else "smote",
+            "average_CV_AUPRC": {n: node[n]["average_CV_AUPRC"]
+                                 for n in SWEEP_ENTRIES},
+            "baseline_AUPRC": node["baseline_AUPRC"]}, {
+        "results": results.data, "checkpoint_dir": ckdir, "data": data}
+
+
+def report_phase(sweep_out, workdir):
+    """``visual.report`` over the sweep's output: the tables against the
+    results, the pooled comparison, and ``CompareModelsResult`` on the card
+    over the four default families' fold-best checkpoints inside a
+    ``profiling.device_trace``."""
+    import glob
+    import pickle
+
+    from embracenet_tpu_torch.models.reload import ReloadedModel
+    from embracenet_tpu_torch.utils import profiling
+    from embracenet_tpu_torch.visual import report
+
+    results, data = sweep_out["results"], sweep_out["data"]
+    node = results[CV_CELL][CV_TASK]
+    avg = report.get_average_auprc_df(results, CV_CELL, tasks=[CV_TASK])[CV_TASK]
+    std = report.get_standard_dev_df(results, CV_CELL, tasks=[CV_TASK])[CV_TASK]
+    for m in report.DEFAULT_MODELS:
+        require(avg[m] == node[m]["average_CV_AUPRC"]
+                and std[m] == float(np.std(node[m]["final_test_AUPRC_scores"])),
+                f"report: {m}'s table cells differ from the results")
+    overall = report.compare_model_overall_performance(
+        results, tasks=[CV_TASK], cells=[CV_CELL])
+    require(all(math.isfinite(r["two_sided_p"]) and math.isfinite(r["greater_p"])
+                for r in overall.values()), f"report: overall {overall}")
+
+    models = ("FFNN", "CNN", "ConcatNetMultimodal", "EmbraceNetMultimodal")
+    cmp = report.CompareModelsResult(sweep_out["checkpoint_dir"], n_folds=1)
+    trace_dir = os.path.join(workdir, "trace")
+    K.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with profiling.device_trace(trace_dir) as prof:
+        with profiling.annotate("compare_models"):
+            res = cmp({CV_CELL: data}, CV_TASK, models=models)
+    wall = time.perf_counter() - t0
+    launches = K.LAUNCHES
+    require(launches > 0, "report: CompareModelsResult launched no kernel")
+    # the same comparison again without the profiler: the trace's cost
+    t0 = time.perf_counter()
+    again = cmp({CV_CELL: data}, CV_TASK, models=models)
+    untraced_wall = time.perf_counter() - t0
+    pairs = res[CV_CELL]
+    require(len(pairs) == 6 and all(
+        len(r["pvalues"]) == 1 and all(0 <= p <= 1 for p in r["pvalues"])
+        and isinstance(r["different"], bool) for r in pairs.values()),
+        f"report: pairs {pairs}")
+    traces = glob.glob(os.path.join(trace_dir, "*.json"))
+    require(len(traces) == 1, f"report: trace files {traces}")
+    with open(traces[0]) as fh:
+        trace = fh.read()
+    require("embrace_fused_fwd_kernel" in trace and "compare_models" in trace,
+            "report: the trace names no embrace_fused_fwd_kernel or no "
+            "compare_models span")
+    kernel_us = sum(getattr(e, "device_time_total", 0)
+                    for e in prof.key_averages()
+                    if "embrace_fused_fwd_kernel" in e.key)
+
+    # the three families without a kernel: card against CPU predictions
+    sub = {k: v[:REPORT_CPU_WINDOWS] for k, v in data.items()}
+    cpu_cmp = report.CompareModelsResult(sweep_out["checkpoint_dir"],
+                                         n_folds=1, device="cpu")
+    batch = ReloadedModel.BATCH
+    ReloadedModel.BATCH = REPORT_CPU_WINDOWS     # no padding to 4096 rows
+    try:
+        errs = {m: float(np.abs(cmp._predictions(CV_CELL, m, CV_TASK, 0, sub)
+                                - cpu_cmp._predictions(CV_CELL, m, CV_TASK, 0,
+                                                       sub)).max())
+                for m in models[:3]}
+    finally:
+        ReloadedModel.BATCH = batch
+    require(all(e <= 1e-4 for e in errs.values()),
+            f"report: card predictions off the CPU's: {errs}")
+
+    path = cmp.save_pval_dict(res, CV_TASK, out_dir=workdir)
+    with open(path, "rb") as fh:
+        loaded = pickle.load(fh)
+    require(set(loaded) == {CV_TASK} and set(loaded[CV_TASK]) == {CV_CELL}
+            and set(loaded[CV_TASK][CV_CELL]) == {"1"}
+            and all(loaded[CV_TASK][CV_CELL]["1"][a][b]
+                    == loaded[CV_TASK][CV_CELL]["1"][b][a] == r["pvalues"][0]
+                    for (a, b), r in pairs.items()),
+            "report: save_pval_dict does not round-trip")
+    return {"launches": launches, "compare_wall_s": wall,
+            "compare_untraced_wall_s": untraced_wall,
+            "repeat_equal": again == res,
+            "trace_mbytes": len(trace) / 1e6,
+            "fused_kernel_trace_ms": kernel_us / 1e3,
+            "pvalues": {f"{a}|{b}": r["pvalues"][0] for (a, b), r in pairs.items()},
+            "different": {f"{a}|{b}": r["different"] for (a, b), r in pairs.items()},
+            "overall": overall, "card_vs_cpu_max_abs": errs}
+
+
+def cli_phase(workdir, pipe):
+    """``python -m embracenet_tpu_torch`` in the data phase's raw tree and
+    cache: each subcommand in-process (so the launch counter sees them),
+    then ``preprocess`` and the quickstart as subprocesses."""
+    import contextlib
+    import io
+    import subprocess
+
+    from embracenet_tpu_torch.__main__ import main as cli
+
+    root, cache = os.path.join(workdir, "data"), os.path.join(workdir, "cache")
+    where = ["--root", root, "--cache-dir", cache]
+    walls, launches = {}, {}
+
+    def run(name, argv):
+        out = io.StringIO()
+        K.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli(argv)
+        walls[name] = time.perf_counter() - t0
+        launches[name] = K.LAUNCHES
+        require(rc == 0, f"cli: {name} returned {rc}")
+        return out.getvalue()
+
+    def last_json(text):
+        lines = text.splitlines()
+        return json.loads("\n".join(lines[max(i for i, line in enumerate(lines)
+                                               if line == "{"):]))
+
+    info = json.loads(run("preprocess", ["preprocess", "--task", DATA_TASK,
+                                         *where]))
+    want = {c: {"rows": int(len(pipe.labels[c])),
+                "features": int(pipe.features[c].shape[1])} for c in pipe.cells()}
+    require(info == want, f"cli: preprocess printed {info}, expected {want}")
+
+    results = os.path.join(workdir, "cli_results.json")
+    ckdir = os.path.join(workdir, "cli_models")
+    store = ["--results", results, "--storage", os.path.join(workdir, "cli.db"),
+             "--checkpoint-dir", ckdir]
+    scores = last_json(run("train", [
+        "train", "--model", CV_MODEL, "--cell", CV_CELL, "--task", DATA_TASK,
+        *where, "--epochs", "1", "--folds", "2", "--trials", "2", *store]))
+    require(math.isfinite(scores["average_CV_AUPRC"]) and launches["train"] > 0,
+            f"cli: train {scores}, {launches['train']} launches")
+    ev = json.loads(run("evaluate", [
+        "evaluate", "--task", DATA_TASK, *where, "--cell", CV_CELL,
+        "--checkpoint", os.path.join(ckdir, checkpoint_name(
+            CV_CELL, CV_MODEL, DATA_TASK, 0))]))
+    require(set(ev) >= {"AUPRC", "AUROC", "F1", "accuracy"}
+            and all(math.isfinite(v) for v in ev.values())
+            and launches["evaluate"] > 0, f"cli: evaluate {ev}")
+    sweep_results = os.path.join(workdir, "cli_sweep_results.json")
+    out = run("sweep", [
+        "sweep", *where, "--cells", CV_CELL, "--tasks", DATA_TASK,
+        "--models", "FFNN", "CNN", "--epochs", "1", "--folds", "2",
+        "--trials", "1", "--results", sweep_results, "--storage",
+        os.path.join(workdir, "cli_sweep.db"), "--checkpoint-dir",
+        os.path.join(workdir, "cli_sweep_models")])
+    require(out.strip().endswith(f"results written to {sweep_results}"),
+            f"cli: sweep printed {out[-200:]!r}")
+    swept = ResultsDict(sweep_results).get(CV_CELL, DATA_TASK)
+    require(all(finite_scores(swept[m]) for m in ("FFNN", "CNN")),
+            f"cli: sweep entries {sorted(swept)}")
+    table = run("parity", ["parity", "--results", results, "--baseline",
+                           os.path.join(REPO, "BASELINE.md")]).splitlines()
+    rows = [line.split() for line in table[1:]
+            if line.split()[:2] == [CV_CELL, DATA_TASK]]
+    require(table[0].split() == ["cell", "task", "model", "ours", "reference",
+                                 "delta", "within_tolerance"]
+            and [r[2] for r in rows] == ["FFNN", "CNN", "ConcatNet",
+                                         "EmbraceNet", "EmbraceNet_augm"]
+            and float(rows[3][3]) == float(format(scores["average_CV_AUPRC"],
+                                                  ".6g")),
+            f"cli: parity rows {rows}")
+
+    # -- the module and the quickstart as programs of their own --
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "embracenet_tpu_torch",
+                           "preprocess", "--task", DATA_TASK, *where],
+                          capture_output=True, text=True, env=env, cwd=REPO,
+                          timeout=300)
+    walls["preprocess_subprocess"] = time.perf_counter() - t0
+    require(proc.returncode == 0 and json.loads(proc.stdout) == want,
+            f"cli: python -m embracenet_tpu_torch preprocess exited "
+            f"{proc.returncode}: {proc.stderr[-2000:]}")
+    with tempfile.TemporaryDirectory(dir=workdir) as qs:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.join(
+            REPO, "examples", "torch_quickstart.py"), "--epochs", "1",
+            "--root", os.path.join(qs, "demo_data")],
+            capture_output=True, text=True, env=env, cwd=qs, timeout=600)
+        walls["quickstart_subprocess"] = time.perf_counter() - t0
+    require(proc.returncode == 0, f"cli: the quickstart exited "
+            f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return {"launches": sum(launches.values()), "walls_s": walls,
+            "launches_by_command": launches,
+            "train_average_CV_AUPRC": scores["average_CV_AUPRC"],
+            "evaluate": ev, "parity_rows": rows,
+            "quickstart_tail": proc.stdout.splitlines()[-7:]}
 
 
 def main() -> int:
@@ -1107,15 +1449,26 @@ def main() -> int:
             lap(f"models_{model}")
     K.fused_embrace = shapes
     try:
-        with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
-            data_out = data_phase(workdir)
+        with tempfile.TemporaryDirectory(dir=build_dir) as data_dir:
+            data_out, pipe = data_phase(data_dir)
+            print(json.dumps({"data": data_out, "card": card}), flush=True)
+            lap("data")
+            with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
+                sweep_out, swept = sweep_phase(workdir)
+                print(json.dumps({"sweep": sweep_out, "card": card}), flush=True)
+                lap("sweep")
+                report_out = report_phase(swept, workdir)
+                print(json.dumps({"report": report_out, "card": card}),
+                      flush=True)
+                lap("report")
+            cli_out = cli_phase(data_dir, pipe)
+            print(json.dumps({"cli": cli_out, "card": card}), flush=True)
+            lap("cli")
     finally:
         K.fused_embrace = shapes.real
-    print(json.dumps({"data": data_out, "card": card}), flush=True)
-    lap("data")
 
-    # -- the kernel at every layout the serve, train, CV and data phases
-    # gave it --
+    # -- the kernel at every layout the serve, train, CV, data, sweep,
+    # report and CLI phases gave it --
     path_cases = [path_case(key, rec, dev) for key, rec in shapes.seen.items()]
     shapes.seen.clear()
     print(json.dumps({"path_cases": path_cases, "card": card}), flush=True)
@@ -1139,7 +1492,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         row("embrace_fused_fwd", 39,
             serve["launches"] + train["launches"] + cv["launches"]
-            + data_out["launches"],
+            + data_out["launches"] + sweep_out["launches"]
+            + report_out["launches"] + cli_out["launches"],
             cases + path_cases),
         row("embrace_fused_fwd_fulle", 78, bench_out["launches_fulle"],
             fulle_cases)]}), flush=True)

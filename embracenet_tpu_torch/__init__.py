@@ -17,6 +17,19 @@ K-fold CV, a hyperparameter search per fold on a SQLite study, the best
 trial's retrain, scores and checkpoints) for all five model families, with
 EmbraceNet's docking and stochastic embracement in the fused CUDA kernels
 and their gradient (``ops/embrace.py``).
+
+The user-facing surface on top of them:
+
+* ``sweep.run_sweep`` — the cells x tasks x models grid with the FFNN
+  smote-vs-double contest, ``preprocess_all``, ``load_baseline_md`` and
+  ``parity_report`` against ``BASELINE.md``;
+* ``visual.report`` — result tables (nested dicts, no pandas), plots,
+  ``CompareModelsResult`` and ``select_augmented_models``;
+* ``python -m embracenet_tpu_torch`` — the CLI (``preprocess``, ``train``,
+  ``sweep``, ``evaluate``, ``parity``; ``--device cpu`` for the CPU);
+* ``utils.profiling`` (``StepTimer``, ``device_trace`` on
+  ``torch.profiler``, ``annotate``) and ``utils.logging.get_logger``;
+* ``examples/torch_quickstart.py`` — the workflow in one script.
 """
 
 from __future__ import annotations

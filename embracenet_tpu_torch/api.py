@@ -107,7 +107,8 @@ def train(model: str, cell_line: str, task: str,
     if results is not None:
         # record under the label: a variant run (model_label="FFNN_smote")
         # must not overwrite the canonical family entry — the canonical one
-        # is written by select_augmented_models after the variant contest
+        # is written by visual.report.select_augmented_models after the
+        # variant contest (sweep.run_sweep)
         name = label + ("_augmentation" if cv_cfg.augmentation else "")
         results.update(cell_line, task, name, scores)
         results.set_baseline(cell_line, task, baseline_auprc(data["y"]))

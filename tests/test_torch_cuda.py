@@ -373,3 +373,58 @@ def test_train_from_a_pipeline_launches_the_kernel_on_the_card(cuda, tmp_path):
                       checkpoint_dir=str(tmp_path / "models"))
     assert K.LAUNCHES > before
     assert all(np.isfinite(scores["final_test_AUPRC_scores"]))
+
+
+def test_compare_models_result_predicts_on_the_card_as_on_the_cpu(cuda,
+                                                                  tmp_path):
+    from embracenet_tpu_torch.training.checkpoint import save_checkpoint
+    from embracenet_tpu_torch.training.cv import checkpoint_name
+    from embracenet_tpu_torch.visual.report import CompareModelsResult
+
+    for name, width in (("FFNN", 64), ("CNN", 32)):    # two FFNNs
+        flat = {"n_layers": 2, "n_units_l0": width, "n_units_l1": 16}
+        hp = space.params_to_hp("FFNN", flat)
+        params, bn = get_spec("FFNN", 16).init(
+            torch.Generator().manual_seed(width), hp)
+        save_checkpoint(str(tmp_path / checkpoint_name("K562", name, "t", 0)),
+                        {"params": params, "bn_state": bn},
+                        {"model": "FFNN", "model_params": flat})
+    rng = np.random.default_rng(0)
+    data = {"ffnn": rng.normal(size=(300, 16)).astype(np.float32),
+            "y": (rng.random(300) < 0.3).astype(np.int64)}
+    card = CompareModelsResult(str(tmp_path), n_folds=1)
+    cpu = CompareModelsResult(str(tmp_path), n_folds=1, device="cpu")
+    for name in ("FFNN", "CNN"):
+        np.testing.assert_allclose(
+            card._predictions("K562", name, "t", 0, data),
+            cpu._predictions("K562", name, "t", 0, data), rtol=1e-5, atol=1e-6)
+    (p,) = card({"K562": data}, "t", models=("FFNN", "CNN"))["K562"][
+        ("FFNN", "CNN")]["pvalues"]
+    assert 0.0 <= p <= 1.0
+
+
+def test_device_trace_names_the_kernel_after_a_predict(cuda, tmp_path):
+    import glob
+
+    from embracenet_tpu_torch.utils import profiling
+
+    flat = {"FFNN_n_layers": 1, "FFNN_n_units_l0": 64, "CNN_n_layers": 1,
+            "CNN_out_channels_l0": 32, "CNN_kernel_size_l0": 11,
+            "EMBRACENET_embracement_size": 512, "n_post_layers": 0,
+            "selection_probabilities_FFNN": 0.5}
+    hp = space.params_to_hp("EmbraceNetMultimodal", flat)
+    params, bn = embracenet.init(torch.Generator().manual_seed(0), hp, 16)
+    model = ReloadedModel("EmbraceNetMultimodal", params, bn, flat,
+                          in_features_ffnn=16)
+    rng = np.random.default_rng(0)
+    data = {"ffnn": rng.normal(size=(300, 16)).astype(np.float32),
+            "cnn": rng.integers(0, 4, size=(300, 256), dtype=np.uint8)}
+    before = K.LAUNCHES
+    with profiling.device_trace(str(tmp_path / "trace")):
+        with profiling.annotate("predict"):
+            model(data)
+    assert K.LAUNCHES == before + 1
+    (path,) = glob.glob(str(tmp_path / "trace" / "*.pt.trace.json"))
+    with open(path) as fh:
+        trace = fh.read()
+    assert "embrace_fused_fwd_kernel" in trace and '"predict"' in trace

@@ -16,7 +16,8 @@ import jax
 import numpy as np
 import pytest
 import torch
-from torch_parity import fake_fit, plain, same_calls, same_checkpoints, to_numpy
+from torch_parity import (fake_fit, fake_reset, plain, same_calls,
+                          same_checkpoints, to_numpy)
 
 from embracenet_tpu import runtime as jruntime
 from embracenet_tpu.config import CVConfig as JCVConfig
@@ -218,14 +219,6 @@ def test_weight_reset_keeps_bn_and_refreshes_the_rest(model):
 # ---------------------------------------------------------------------------
 # KfoldCV accounting with fake fit and weight_reset in both packages
 # ---------------------------------------------------------------------------
-
-def fake_reset(calls):
-    def weight_reset(key, spec, hp, old_params, old_bn):
-        calls.append({"hp": hp, "params": to_numpy(old_params)})
-        return ({k: (v if k.startswith("bn") else np.asarray(v) + 0.5)
-                 for k, v in to_numpy(old_params).items()}, to_numpy(old_bn))
-    return weight_reset
-
 
 @pytest.fixture
 def cv_fakes(monkeypatch):

@@ -150,8 +150,10 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     tools = os.path.join(REPO, "tools")
+    examples = os.path.join(REPO, "examples")
     files = [os.path.join(REPO, "chip_smoke.py")] + [
-        os.path.join(tools, n) for n in sorted(os.listdir(tools))
+        os.path.join(d, n) for d in (tools, examples)
+        for n in sorted(os.listdir(d))
         if n.startswith("torch_") and n.endswith(".py")]
     for root, dirs, names in os.walk(os.path.join(REPO, "embracenet_tpu_torch")):
         dirs[:] = [d for d in dirs if d != "_build"]  # build outputs, not source
@@ -177,6 +179,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "embracenet_tpu_torch/data/splits.py",
             "embracenet_tpu_torch/data/pipeline.py",
             "embracenet_tpu_torch/data/synth.py",
+            "embracenet_tpu_torch/sweep.py",
+            "embracenet_tpu_torch/__main__.py",
+            "embracenet_tpu_torch/visual/report.py",
+            "embracenet_tpu_torch/utils/profiling.py",
+            "embracenet_tpu_torch/utils/logging.py",
+            "examples/torch_quickstart.py",
             "tools/torch_embrace_ab.py", "tools/torch_embrace_bench.py",
             "tools/torch_serve_profile.py"} <= names
     for path in files:

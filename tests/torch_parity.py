@@ -140,6 +140,16 @@ def fake_fit(calls):
     return fit
 
 
+def fake_reset(calls):
+    """A ``weight_reset`` stand-in for both packages: records its call and
+    shifts every non-BatchNorm leaf by 0.5."""
+    def weight_reset(key, spec, hp, old_params, old_bn):
+        calls.append({"hp": hp, "params": to_numpy(old_params)})
+        return ({k: (v if k.startswith("bn") else np.asarray(v) + 0.5)
+                 for k, v in to_numpy(old_params).items()}, to_numpy(old_bn))
+    return weight_reset
+
+
 def plain(x):
     if isinstance(x, dict):
         return {k: plain(v) for k, v in x.items()}
@@ -178,3 +188,21 @@ def same_checkpoints(dj, dt):
         assert mj == mt, name
         assert plain(tj) == plain(tt), name
     return names
+
+
+def same_text_table(got: str, want: str):
+    """Two printed tables hold the same cells: words equal, numbers within
+    the 6 digits each side prints."""
+    a = [line.split() for line in got.strip().splitlines()]
+    b = [line.split() for line in want.strip().splitlines()]
+    assert len(a) == len(b)
+    for ra, rb in zip(a, b):
+        assert len(ra) == len(rb), (ra, rb)
+        for x, y in zip(ra, rb):
+            try:
+                fx, fy = float(x), float(y)
+            except ValueError:
+                assert x == y
+                continue
+            assert (np.isnan(fx) and np.isnan(fy)) or abs(fx - fy) <= 1e-6 * max(
+                1.0, abs(fy)), (x, y)
