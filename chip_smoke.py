@@ -31,7 +31,12 @@ without them.  It
    and ``products_ms``, the device time of the two docking products alone
    through ``torch.matmul`` in the operand type (a yardstick the port
    never calls).  No single PyTorch call computes this
-   function, so there is no library time: ``library_ms`` is null;
+   function, so there is no library time: ``library_ms`` is null.  Then
+   both kernels at ``row_base = r`` on rows [r, r + b) of the train and
+   eval batches (B = 100, 200: both halves and a 37-row tail) choose as
+   the whole launch does for those rows, bit for bit, with ``out`` within
+   the tolerance, and ``row_base = 0`` is the launch without it, bit for
+   bit;
 3. serve phase: builds the widest EmbraceNetMultimodal of the search space
    (FFNN 256/128/64/32, CNN 64/96/256/512 with 15-tap kernels, embracement
    1024, post layers 512/256, 566 tabular features as HEPG2) from a seeded
@@ -144,8 +149,18 @@ without them.  It
     ``python -m embracenet_tpu_torch preprocess`` and
     ``examples/torch_quickstart.py --epochs 1`` (in a temporary directory)
     as subprocesses that must exit with 0;
-14. path-shape phase: while the serve, train, CV, data, sweep, report and
-    CLI phases run,
+14. mesh phase (multi-device training, ``parallel/mesh.py``): two trials
+    of the widest EmbraceNetMultimodal (dropout 0.1, p = 0.5) on 2,000 of
+    ``make_data``'s windows, 1 epoch, meshless, on a 1 x 1 mesh through
+    ``init_distributed`` with NCCL (bit for bit), and in two processes on
+    the card under gloo (``chip_smoke.py --mesh-worker DIR``, killed after
+    240 s): a 2 x 1 trial mesh (bit for bit) and a 1 x 2 data mesh (its
+    first step against the whole batch's, its epoch beside a 1-ulp change
+    of the init); launches and ``row_base`` per rank, aggregate train
+    windows/s, the data mesh's ms per step and all-reduce share (see
+    :func:`mesh_phase`);
+15. path-shape phase: while the serve, train, CV, data, sweep, report,
+    CLI and mesh phases run (and in each mesh worker),
     ``ShapeLog`` stands in for ``fused_embrace`` and keeps the inputs and
     output of the first call at each distinct layout the paths give the
     kernel (balanced train batches of 93-97 rows, eval batches, the bf16
@@ -153,8 +168,11 @@ without them.  It
     without width buckets docks at the search space's widest D0, D1 and
     E).  After them the kernel is replayed at each: the same output bit
     for bit, and the plain version's ``where(choose, d0, d1)``, d0 at
-    p0 = 1 and d1 at p0 = 0 within the kernel phase's tolerance;
-15. prints the card's name and power limit, the ``{"kernels": [...]}`` line
+    p0 = 1 and d1 at p0 = 0 within the kernel phase's tolerance; each pair
+    of the data mesh's shards (48 + 48 rows of a 95-row train batch padded
+    to 96, 100 + 100 eval rows) is launched again on its rows together:
+    the same ``choose`` bit for bit;
+16. prints the card's name and power limit, the ``{"kernels": [...]}`` line
     and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero without the last line.
@@ -181,7 +199,7 @@ from embracenet_tpu_torch.benchkit import (IN_FEATURES, bound, cuda_ms,
                                            widest_lstm_flat_params,
                                            write_raw_dataset)
 from embracenet_tpu_torch.config import CVConfig, TrainConfig
-from embracenet_tpu_torch.convert import tree_leaves, tree_to_numpy
+from embracenet_tpu_torch.convert import tree_leaves, tree_map, tree_to_numpy
 from embracenet_tpu_torch.hpo import space
 from embracenet_tpu_torch.hpo.study import Study
 from embracenet_tpu_torch.models import embracenet
@@ -191,7 +209,10 @@ from embracenet_tpu_torch.ops import embrace as K
 from embracenet_tpu_torch.training import engine
 from embracenet_tpu_torch.training.batching import balanced_plan, eval_plan
 from embracenet_tpu_torch.training.bucketing import plan_buckets
-from embracenet_tpu_torch.training.checkpoint import save_checkpoint
+from embracenet_tpu_torch.parallel.mesh import (free_port, init_distributed,
+                                                launch_local, make_mesh)
+from embracenet_tpu_torch.training.checkpoint import (load_checkpoint,
+                                                      save_checkpoint)
 from embracenet_tpu_torch.training.cv import checkpoint_name
 from embracenet_tpu_torch.training.modelspec import get_spec
 from embracenet_tpu_torch.training.results import ResultsDict
@@ -318,6 +339,36 @@ def spread_p0(B, dev):
     if B == 1:
         return torch.full((1,), 0.5, device=dev)
     return torch.linspace(0, 1, B, device=dev)
+
+
+def row_base_case(kernel, shape, dtype, dev, gen):
+    """``kernel`` (``fused_embrace`` or ``fused_embrace_fulle``) on rows
+    [r, r + b) at ``row_base = r`` against the launch on the whole batch:
+    the data mesh's halves and a ragged tail.  ``choose`` bit for bit, out
+    within the kernel phase's tolerance (the shard's plan may sum K in
+    another order); at ``row_base = 0`` on the whole batch, the launch
+    without the argument bit for bit."""
+    B = shape["B"]
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    fn = getattr(K, kernel)
+    args, e_mask = case_inputs(shape, dtype, dev, gen)
+    p0 = spread_p0(B, dev)
+    out, ch = fn(*args, p0, e_mask, 7)
+    out0, ch0 = fn(*args, p0, e_mask, 7, row_base=0)
+    require(torch.equal(out, out0) and torch.equal(ch, ch0),
+            f"{kernel}: row_base=0 must be the launch without it")
+    err = 0.0
+    for lo, hi in ((0, B // 2), (B // 2, B), (B - 37, B)):
+        part = [a[lo:hi] for a in args[:2]] + list(args[2:])
+        o, c = fn(*part, p0[lo:hi], e_mask, 7, row_base=lo)
+        require(torch.equal(c, ch[lo:hi]), f"{kernel} at row_base={lo}: "
+                "choose differs from the whole launch's rows")
+        torch.testing.assert_close(o, out[lo:hi], rtol=tol, atol=tol)
+        err = max(err, float((o - out[lo:hi]).abs().max()))
+    return {"kernel": kernel, "shape": [B, shape["D0"], shape["D1"], shape["E"]],
+            "dtype": str(dtype).split(".")[-1], "shards": [[0, B // 2], [B // 2, B],
+                                                            [B - 37, B]],
+            "max_abs_err_vs_whole": err}
 
 
 def fulle_case(shape, dtype, dev, gen):
@@ -579,19 +630,22 @@ def strided_copy(w):
 class ShapeLog:
     """Stands in for ``ops.embrace.fused_embrace`` (``models.embracenet``
     looks it up at each call) while the counted phases run.  At each
-    distinct operand layout (B, D0, D1, E, dtype, the weights' row strides)
-    it keeps the first call's inputs and output, copied on the stream right
-    after the launch; it launches no kernel and syncs nothing."""
+    distinct operand layout (B, D0, D1, E, dtype, the weights' row strides,
+    row_base) it keeps the first call's inputs and outputs, copied on the
+    stream right after the launch; it launches no kernel and syncs
+    nothing."""
 
     def __init__(self):
         self.seen = {}
         self.real = K.fused_embrace
 
-    def __call__(self, x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
-        out, choose = self.real(x0, x1, w0, b0, w1, b1, p0, e_mask, seed)
+    def __call__(self, x0, x1, w0, b0, w1, b1, p0, e_mask, seed, row_base=0):
+        out, choose = self.real(x0, x1, w0, b0, w1, b1, p0, e_mask, seed,
+                                row_base=row_base)
         if x0.is_cuda:
             key = (x0.shape[0], w0.shape[0], w1.shape[0], w0.shape[1],
-                   str(x0.dtype).split(".")[-1], w0.stride(0), w1.stride(0))
+                   str(x0.dtype).split(".")[-1], w0.stride(0), w1.stride(0),
+                   int(row_base))
             if key not in self.seen:
                 with torch.no_grad():
                     self.seen[key] = {"calls": 0, "args": (
@@ -599,17 +653,17 @@ class ShapeLog:
                         strided_copy(w1), b1.clone(), p0.clone(),
                         e_mask.clone(),
                         seed.clone() if isinstance(seed, torch.Tensor) else seed),
-                        "out": out.detach().clone()}
+                        "out": out.detach().clone(), "choose": choose.clone()}
             self.seen[key]["calls"] += 1
         return out, choose
 
 
 def path_case(key, rec, dev):
-    """The kernel replayed on one layout the main paths gave it: the same
-    output bit for bit as on the path, ``where(choose, d0, d1)`` of the
-    plain version within the kernel phase's tolerance, d0 / d1 at
-    p0 = 1 / 0, masked columns 0."""
-    B, D0, D1, E, dtype, s0, s1 = key
+    """The kernel replayed on one layout the main paths gave it (at its
+    row_base): the same outputs bit for bit as on the path,
+    ``where(choose, d0, d1)`` of the plain version within the kernel
+    phase's tolerance, d0 / d1 at p0 = 1 / 0, masked columns 0."""
+    B, D0, D1, E, dtype, s0, s1, row_base = key
     tol = 1e-4 if dtype == "float32" else 1e-2
     x0, x1, w0, b0, w1, b1, p0, e_mask, seed = rec["args"]
     args = (x0, x1, w0, b0, w1, b1)
@@ -617,9 +671,10 @@ def path_case(key, rec, dev):
     u0 = torch.zeros(B, E, device=dev)
     d0, _ = K.fused_embrace_reference(*args, ones, e_mask, u0)
     d1, _ = K.fused_embrace_reference(*args, zeros, e_mask, u0)
-    out, ch = K.fused_embrace(*args, p0, e_mask, seed)
-    require(torch.equal(out, rec["out"]), f"path shape {key}: the replay "
-            "differs from the output the path got")
+    out, ch = K.fused_embrace(*args, p0, e_mask, seed, row_base=row_base)
+    require(torch.equal(out, rec["out"]) and torch.equal(ch, rec["choose"]),
+            f"path shape {key}: the replay differs from the output the path "
+            "got")
     want = torch.where(ch.bool(), d0, d1)
     torch.testing.assert_close(out, want, rtol=tol, atol=tol)
     require(bool((out[:, e_mask == 0] == 0).all()),
@@ -631,6 +686,7 @@ def path_case(key, rec, dev):
     require(bool((ch1 == 1).all()) and bool((ch0 == 0).all()),
             f"path shape {key}: p0 = 1 / 0 must choose modality 0 / 1")
     return {"shape": [B, D0, D1, E], "dtype": dtype, "w_row_strides": [s0, s1],
+            "row_base": row_base,
             "live": int(e_mask.sum()), "calls": rec["calls"],
             "max_abs_err": max(float((out - want).abs().max()),
                                float((out1 - d0).abs().max()),
@@ -1368,6 +1424,436 @@ def cli_phase(workdir, pipe):
             "evaluate": ev, "parity_rows": rows,
             "quickstart_tail": proc.stdout.splitlines()[-7:]}
 
+# the mesh phase: the widest EmbraceNet twice, on 2,000 windows, 1 epoch
+MESH_WINDOWS, MESH_TRAIN = 2000, 1600
+# seconds before the mesh phase's two-process world is killed
+MESH_TIMEOUT = 240.0
+
+
+def mesh_population():
+    """The mesh phase's fit: two trials of the widest EmbraceNetMultimodal
+    (dropout 0.1 in every block, selection probability 0.5, Adam lr 1e-3;
+    each its own init and step seeds) on ``make_data``'s windows, float32,
+    batch 100, 1 epoch."""
+    data = make_data(MESH_WINDOWS, IN_FEATURES, np.random.default_rng(0))
+    train = {k: v[:MESH_TRAIN] for k, v in data.items()}
+    test = {k: v[MESH_TRAIN:] for k, v in data.items()}
+    flat = widest_flat_params(0.5)
+    for key in list(flat):
+        if "_n_units_l" in key or "out_channels_l" in key:
+            flat[key.replace("n_units_l", "dropout_l").replace(
+                "out_channels_l", "dropout_l")] = 0.1
+    hp = space.params_to_hp("EmbraceNetMultimodal", flat)
+    opt = space.optimizer_hp(flat)
+    spec = get_spec("EmbraceNetMultimodal", in_features_ffnn=IN_FEATURES)
+    return (spec, [hp, hp], [opt, opt], train, test,
+            TrainConfig(num_epochs=1, epoch_chunk=1, batch_size=100))
+
+
+def fit_history(res):
+    return {"loss": res.loss_train, "auprc_train": res.auprc_train,
+            "auprc_test": res.auprc_test, "epochs": res.epochs_run}
+
+
+def fit_distance(got, want):
+    """Max |got - want| of every epoch's train and test AUPRC and the
+    largest relative difference of a train loss, over trials."""
+    def gap(key):
+        return float(np.abs(np.asarray(got[key]) - np.asarray(want[key])).max())
+    return {"auprc_train": gap("auprc_train"), "auprc_test": gap("auprc_test"),
+            "loss_rel": float((np.abs(np.asarray(got["loss"])
+                                      - np.asarray(want["loss"]))
+                               / np.abs(np.asarray(want["loss"]))).max())}
+
+
+def param_diff(res, ref):
+    """Max |res - ref| over every param and BatchNorm leaf (``ref``: the
+    checkpoint trees of the meshless fit), max |ref| of the params, and
+    whether every leaf is equal bit for bit."""
+    got = tree_leaves(tree_to_numpy({"params": res.params,
+                                     "bn_state": res.bn_state}))
+    want = tree_leaves(ref)
+    diffs = [float(np.abs(g.astype(np.float64) - w).max()) for g, w in zip(got, want)]
+    return {"max_abs": max(diffs),
+            "max_p": max(float(np.abs(w).max()) for w in tree_leaves(ref["params"])),
+            "equal": all(np.array_equal(g, w) for g, w in zip(got, want))}
+
+
+def population_init(spec, hps, cfg):
+    """The init ``engine.fit`` draws for the population (its
+    ``seed_streams``), stacked over trials."""
+    init_seeds, _ = engine.seed_streams(cfg.seed, len(hps))
+    inits = [spec.init_from_fans(torch.Generator().manual_seed(int(s)),
+                                 spec.fan_ins(hp))
+             for s, hp in zip(init_seeds, hps)]
+    return (engine.stack_trials([i[0] for i in inits]),
+            engine.stack_trials([i[1] for i in inits]))
+
+
+def adam_first_step_excess(new_s, new_w, params, g_s, g_w, lr, wd):
+    """How far the sharded step's new params stray past what Adam's first
+    step allows, given the two steps' gradients (``g_s``, ``g_w``; None
+    for a leaf without one): the step moves each weight by
+    ``lr * g / (|g| + eps)`` of its coupled gradient ``g + wd * p``, which
+    moves by at most ``|dg| / (min |g| + eps)`` (and never by more than 2),
+    plus float32 rounding.  Returns the largest excess over that bound
+    (<= 0 when the update is right) and the largest |new_s - new_w|
+    relative to max |p|."""
+    eps, excess, gap, top = 1e-8, -math.inf, 0.0, 0.0
+    for a, b, p, gs, gw in zip(new_s, new_w, params, g_s, g_w):
+        p = p.float()
+        gs = wd * p if gs is None else gs.float() + wd * p
+        gw = wd * p if gw is None else gw.float() + wd * p
+        bound = lr * torch.clamp((gs - gw).abs()
+                                 / (torch.minimum(gs.abs(), gw.abs()) + eps),
+                                 max=2.0) + 1e-6 * (lr + p.abs())
+        d = (a.float() - b.float()).abs()
+        excess = max(excess, float((d - bound).max()))
+        gap, top = max(gap, float(d.max())), max(top, float(p.abs().max()))
+    return excess, gap / top
+
+
+def sharded_step(spec, hps, opts, train, cfg, mesh):
+    """Trial 0's first train step at full width, on this rank's half of the
+    first balanced batch (``BatchShard``) and on the whole batch, from the
+    fit's own init: the loss, the logits of this rank's rows, every
+    gradient (taken where ``optim.apply_update`` receives them), the new
+    BatchNorm running statistics and the new params (held to what Adam's
+    first step makes of the gradients' rounding,
+    :func:`adam_first_step_excess`)."""
+    from embracenet_tpu_torch.ops import optim
+    from embracenet_tpu_torch.parallel.mesh import BatchShard
+
+    dev = mesh.device
+    params, bn = (tree_map(lambda a: a[0].to(dev), t)
+                  for t in population_init(spec, hps, cfg))
+    opt_state = optim.init_state(params)
+    require(int(opts[0]["optimizer"]) == optim.ADAM,
+            "mesh: the sharded step's bound is Adam's")
+    opt_hp = {k: torch.tensor(opts[0][k], device=dev)
+              for k in ("optimizer", "lr", "weight_decay")}
+    plan = balanced_plan(train["y"], cfg.batch_size, seed=123)
+    bw = plan.idx.shape[1]
+    per, k = -(-bw // 2), mesh.coords["data"]
+    idx = torch.zeros(2 * per, dtype=torch.long, device=dev)
+    mask = torch.zeros(2 * per, device=dev)
+    idx[:bw] = torch.as_tensor(plan.idx[0], device=dev)
+    mask[:bw] = torch.as_tensor(plan.mask[0], device=dev)
+    data = engine._device_data(train, spec, dev)
+    statics = engine._resolve_statics(spec, hps, cfg)
+    grads, real = [], engine.optim.apply_update
+
+    def capture(p, g, *args):
+        grads.append(tree_leaves(g))
+        return real(p, g, *args)
+
+    engine.optim.apply_update = capture
+    try:
+        whole = engine.train_step(spec, params, bn, opt_state, hps[0], opt_hp,
+                                  *engine._gather(data, idx[:bw], spec),
+                                  mask[:bw], 12345, None, statics)
+        cols = slice(k * per, (k + 1) * per)
+        shard = engine.train_step(spec, params, bn, opt_state, hps[0], opt_hp,
+                                  *engine._gather(data, idx[cols], spec),
+                                  mask[cols], 12345, None, statics,
+                                  BatchShard(k * per, bw, 2, mesh.group("data")))
+    finally:
+        engine.optim.apply_update = real
+    n = min(bw, (k + 1) * per) - k * per
+    logits = whole[1][k * per:k * per + n]
+    have = [(a, b) for a, b in zip(grads[1], grads[0]) if b is not None]
+    bn_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                 for a, b in zip(tree_leaves(shard[3]), tree_leaves(whole[3])))
+    excess, params_rel = adam_first_step_excess(
+        tree_leaves(shard[2]), tree_leaves(whole[2]), tree_leaves(params),
+        grads[1], grads[0], float(opts[0]["lr"]), float(opts[0]["weight_decay"]))
+    return {"rows": [k * per, k * per + n],
+            "loss_rel": abs(float(shard[0]) / float(whole[0]) - 1.0),
+            "logits_max_abs": float((shard[1][:n] - logits).abs().max()),
+            "logits_max": float(logits.abs().max()),
+            "grad_max_abs": max(float((a - b).abs().max()) for a, b in have),
+            "grad_max": max(float(b.abs().max()) for _, b in have),
+            "bn_rel": bn_rel, "params_rel": params_rel,
+            "params_excess_over_adam_bound": excess}
+
+
+def same_value(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    return a == b
+
+
+def shard_pair_case(first, second, dev):
+    """Two data shards' first launches at one layout (``first`` at rows
+    [0, r), ``second`` at [r, r + b) with ``row_base = r``, from the same
+    step of the two ranks) against the kernel launched on their rows
+    together: the replicas' weights, seed and mask equal bit for bit, the
+    whole launch's ``choose`` the shards' bit for bit (each shard drew the
+    whole batch's uniforms at its rows), its out theirs within the kernel
+    phase's tolerance."""
+    (k0, a), (k1, b) = first, second
+    tol = 1e-4 if k0[4] == "float32" else 1e-2
+    xa, xb = a["args"], b["args"]
+    require(all(same_value(xa[i], xb[i]) for i in (2, 3, 4, 5, 7, 8)),
+            f"mesh: the data replicas launched {k0} / {k1} with other "
+            "weights, seed or mask")
+    whole = (torch.cat([xa[0], xb[0]]), torch.cat([xa[1], xb[1]]))
+    out, ch = K.fused_embrace(*whole, *xa[2:6], torch.cat([xa[6], xb[6]]),
+                              xa[7], xa[8])
+    require(torch.equal(ch, torch.cat([a["choose"], b["choose"]])),
+            f"mesh: shards {k0} / {k1} chose other than their rows of the "
+            "whole batch's launch")
+    want = torch.cat([a["out"], b["out"]])
+    torch.testing.assert_close(want, out, rtol=tol, atol=tol)
+    return {"shape": [int(out.shape[0])] + list(k0[1:4]), "dtype": k0[4],
+            "shards": [[0, k0[0]], [k1[7], k1[7] + k1[0]]],
+            "max_abs_err": float((want - out).abs().max())}
+
+
+def mesh_worker(workdir) -> int:
+    """One of the mesh phase's two ranks (``chip_smoke.py --mesh-worker
+    DIR``, started by :func:`mesh_phase`): gloo on this card, a 2 x 1
+    trial mesh, then a 1 x 2 data mesh, each fit compared with the meshless
+    fit's checkpoint in ``DIR``, and the data mesh's first train step
+    (:func:`sharded_step`); writes ``DIR/mesh_rank{r}.json``, and the
+    first inputs and outputs of each kernel layout it launched
+    (:class:`ShapeLog`) to ``DIR/mesh_shapes_rank{r}.pt``.  An untimed
+    trial-mesh fit warms the process up first.  The kernel's launches and
+    the rows it was launched at are counted in each fit; every all-reduce
+    is timed on the host after the card has caught up (a synchronise
+    before it), so its share of a step is the collectives' alone."""
+    import torch.distributed as dist
+
+    init_distributed(backend="gloo")
+    rank = dist.get_rank()
+    spec, hps, opts, train, test, cfg = mesh_population()
+    ref, _ = load_checkpoint(os.path.join(workdir, "ref"))
+    bases, reduce_s = set(), [0.0, 0]
+    shapes, real_all_reduce = ShapeLog(), dist.all_reduce
+
+    def fused(*args, row_base=0):
+        bases.add(int(row_base))
+        return shapes(*args, row_base=row_base)
+
+    def all_reduce(tensor, *args, **kw):
+        if tensor.is_cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        work = real_all_reduce(tensor, *args, **kw)
+        reduce_s[0] += time.perf_counter() - t
+        reduce_s[1] += 1
+        return work
+
+    K.fused_embrace, dist.all_reduce = fused, all_reduce
+    out = {"rank": rank}
+    for name, shape in (("trial_2x1", (2, 1)), ("data_1x2", (1, 2))):
+        mesh = make_mesh(*shape)
+        if name == "trial_2x1":
+            # warm-up: this process' first fit loads the kernels and the
+            # cuDNN / cuBLAS handles that the meshless fit found loaded
+            engine.fit(spec, hps, opts, train, test, cfg, mesh=mesh)
+        else:
+            out["data_step"] = sharded_step(spec, hps, opts, train, cfg, mesh)
+        K.LAUNCHES, reduce_s[:] = 0, [0.0, 0]
+        bases.clear()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = engine.fit(spec, hps, opts, train, test, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[name] = {"wall_s": wall, "launches": K.LAUNCHES,
+                     "row_bases": sorted(bases), "allreduce_s": reduce_s[0],
+                     "allreduce_calls": reduce_s[1], "device": str(mesh.device),
+                     "coords": mesh.coords, "hist": fit_history(res),
+                     "params": param_diff(res, ref)}
+    with open(os.path.join(workdir, f"mesh_rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    torch.save(shapes.seen, os.path.join(workdir, f"mesh_shapes_rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_phase(workdir):
+    """Multi-device training on the one card: the meshless fit of
+    :func:`mesh_population`; the same fit on a 1 x 1 mesh through
+    ``init_distributed`` with NCCL (world of 1), bit for bit; then two
+    processes on the card with gloo (:func:`mesh_worker`): the 2 x 1 trial
+    mesh bit for bit, and the 1 x 2 data mesh (each rank half of every
+    batch): its first train step at full width against the whole batch's
+    (loss within 1e-5 relative, logits within 1e-4 x max|logit|, every
+    gradient within 1e-4 x max|gradient|, the new BatchNorm running
+    statistics within 1e-5 relative, the new params within what Adam's
+    first step makes of the gradients' rounding), its epoch reported beside the
+    meshless fit's own distance under a 1-ulp change of its init (the
+    yardstick of how far rounding carries an epoch of Adam) and held to
+    finite values, equal epochs and a loss within 1 %.  Every fit launches
+    the kernel once per forward pass, the data mesh's in both shards at
+    their first rows (0; 48 of a 95-row train batch, 100 of a 200-row eval
+    batch).  Aggregate train windows/s of the trial mesh against the
+    meshless fit; ms per train step of the data mesh and its all-reduces'
+    share."""
+    import torch.distributed as dist
+
+    spec, hps, opts, train, test, cfg = mesh_population()
+    n_tr, w_tr = balanced_plan(train["y"], cfg.batch_size, seed=123).idx.shape
+    n_ev, w_ev = eval_plan(len(test["y"]), 2 * cfg.batch_size, seed=123).idx.shape
+    per_trial = cfg.num_epochs * (n_tr + n_ev)       # forward passes a trial
+    windows = len(hps) * cfg.num_epochs * len(train["y"])
+
+    def timed_fit(mesh=None, init=(None, None)):
+        K.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.fit(spec, hps, opts, train, test, cfg, mesh=mesh,
+                         init_params=init[0], init_bn_state=init[1])
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, K.LAUNCHES
+
+    ref, ref_wall, ref_launches = timed_fit()
+    require(ref_launches == len(hps) * per_trial,
+            f"mesh: meshless fit launched {ref_launches}, expected "
+            f"{len(hps) * per_trial}")
+    save_checkpoint(os.path.join(workdir, "ref"),
+                    {"params": ref.params, "bn_state": ref.bn_state})
+    ref_trees, _ = load_checkpoint(os.path.join(workdir, "ref"))
+    want = fit_history(ref)
+    # the yardstick of the data mesh's fit: the meshless fit from its own
+    # init moved by one ulp (every weight to the next float32 up)
+    init_p, init_bn = population_init(spec, hps, cfg)
+    ulp, _, _ = timed_fit(init=(tree_map(
+        lambda a: torch.nextafter(a, torch.full_like(a, math.inf)), init_p),
+        init_bn))
+    ulp_diff = dict(fit_distance(fit_history(ulp), want),
+                    params=param_diff(ulp, ref_trees)["max_abs"])
+    del ulp
+
+    # (a) a 1 x 1 mesh through init_distributed, NCCL, a world of one
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        require(dist.get_backend() == "nccl", "mesh: the card's default "
+                f"backend is {dist.get_backend()}, not nccl")
+        one, one_wall, one_launches = timed_fit(make_mesh(1, 1))
+    finally:
+        dist.destroy_process_group()
+    one_diff = param_diff(one, ref_trees)
+    require(fit_history(one) == want and one_diff["equal"],
+            f"mesh: the 1 x 1 NCCL mesh differs from the meshless fit "
+            f"({one_diff})")
+    require(one_launches == ref_launches, "mesh: the 1 x 1 mesh launched "
+            f"{one_launches} kernels, the meshless fit {ref_launches}")
+    del one, ref
+    torch.cuda.empty_cache()
+
+    # (b) two processes on this card, gloo: the trial mesh, the data mesh
+    t0 = time.perf_counter()
+    launch_local([os.path.abspath(__file__), "--mesh-worker", workdir], 2,
+                 MESH_TIMEOUT)
+    world_wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(workdir, f"mesh_rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    # each rank's kernel layouts, in the data mesh's shard order
+    records = [torch.load(os.path.join(workdir, f"mesh_shapes_rank{r['rank']}.pt"),
+                          map_location="cuda", weights_only=False)
+               for r in sorted(ranks, key=lambda r: r["data_1x2"]["coords"]["data"])]
+    for r in ranks:
+        trial, data = r["trial_2x1"], r["data_1x2"]
+        require(trial["hist"] == want and trial["params"]["equal"],
+                f"mesh: rank {r['rank']}'s 2 x 1 trial mesh differs from the "
+                f"meshless fit ({trial['params']})")
+        require(trial["launches"] == per_trial and trial["row_bases"] == [0],
+                f"mesh: rank {r['rank']} of the trial mesh launched "
+                f"{trial['launches']} at rows {trial['row_bases']}, expected "
+                f"{per_trial} at 0")
+        # one sharded step at full width: the data axis' sums agree with
+        # the whole batch's to float32 rounding
+        st = r["data_step"]
+        require(st["loss_rel"] <= 1e-5
+                and st["logits_max_abs"] <= 1e-4 * st["logits_max"]
+                and st["grad_max_abs"] <= 1e-4 * st["grad_max"]
+                and st["bn_rel"] <= 1e-5
+                and st["params_excess_over_adam_bound"] <= 0.0,
+                f"mesh: rank {r['rank']}'s sharded step differs from the "
+                f"whole batch's: {st}")
+        # the fit: an epoch of Adam carries that rounding as far as a
+        # 1-ulp change of the init carries the meshless fit (measured
+        # beside it), so it is held only to finite, equal epochs and a
+        # loss within 1 %
+        d = fit_distance(data["hist"], want)
+        require(data["hist"]["epochs"] == want["epochs"]
+                and all(math.isfinite(v) for v in sum(
+                    (sum(data["hist"][k_], []) for k_ in
+                     ("loss", "auprc_train", "auprc_test")), []))
+                and d["loss_rel"] <= 1e-2,
+                f"mesh: rank {r['rank']}'s data mesh fit {d} (a 1-ulp init "
+                f"change: {ulp_diff})")
+        # each shard's first row of a train batch and of an eval batch
+        k = data["coords"]["data"]
+        want_bases = sorted({k * -(-w // 2) for w in (w_tr, w_ev)})
+        require(data["launches"] == len(hps) * per_trial
+                and data["row_bases"] == want_bases,
+                f"mesh: rank {r['rank']} of the data mesh launched "
+                f"{data['launches']} at rows {data['row_bases']}, expected "
+                f"{len(hps) * per_trial} at {want_bases}")
+    trial_wall = max(r["trial_2x1"]["wall_s"] for r in ranks)
+    data_wall = max(r["data_1x2"]["wall_s"] for r in ranks)
+    steps = len(hps) * cfg.num_epochs * n_tr
+    return {"launches": ref_launches + one_launches
+            + sum(r[m]["launches"] for r in ranks for m in ("trial_2x1", "data_1x2")),
+            "plan_widths": [w_tr, w_ev],
+            "windows": windows, "train_steps_per_trial": n_tr,
+            "eval_batches_per_trial": n_ev,
+            "meshless": {"wall_s": ref_wall, "launches": ref_launches,
+                         "train_windows_per_s": windows / ref_wall},
+            "nccl_1x1": {"wall_s": one_wall, "launches": one_launches,
+                         "train_windows_per_s": windows / one_wall},
+            "gloo_world_wall_s": world_wall,
+            "trial_2x1": {"wall_s": trial_wall,
+                          "aggregate_train_windows_per_s": windows / trial_wall,
+                          "vs_meshless": ref_wall / trial_wall,
+                          "launches_per_rank": [r["trial_2x1"]["launches"]
+                                                for r in ranks]},
+            "data_1x2": {"wall_s": data_wall,
+                         "train_windows_per_s": windows / data_wall,
+                         "ms_per_train_step": 1e3 * data_wall / steps,
+                         "allreduce_s_per_rank": [r["data_1x2"]["allreduce_s"]
+                                                  for r in ranks],
+                         "allreduce_calls_per_rank": [
+                             r["data_1x2"]["allreduce_calls"] for r in ranks],
+                         "allreduce_share": max(r["data_1x2"]["allreduce_s"]
+                                                for r in ranks) / data_wall,
+                         "launches_per_rank": [r["data_1x2"]["launches"]
+                                               for r in ranks],
+                         "row_bases_per_rank": [r["data_1x2"]["row_bases"]
+                                                for r in ranks],
+                         "step": [r["data_step"] for r in ranks],
+                         "fit_vs_meshless": dict(
+                             fit_distance(ranks[0]["data_1x2"]["hist"], want),
+                             params=ranks[0]["data_1x2"]["params"]["max_abs"]),
+                         "max_p": ranks[0]["data_1x2"]["params"]["max_p"]},
+            "ulp_init_vs_meshless": ulp_diff}, records
+
+
+def mesh_shard_cases(records, widths, dev):
+    """The kernel at every layout the two ranks gave it
+    (:func:`path_case`), and each pair of data shards held against the
+    launch on their rows together (:func:`shard_pair_case`): one pair for
+    each plan width the data mesh split (a train and an eval batch)."""
+    cases = [path_case(key, rec, dev) for recs in records
+             for key, rec in recs.items()]
+    first, second = records
+    pairs = [shard_pair_case(((k1[7],) + k1[1:7] + (0,),
+                              first[(k1[7],) + k1[1:7] + (0,)]), (k1, b), dev)
+             for k1, b in second.items() if k1[7] != 0]
+    # a plan row is padded with masked columns to a multiple of the 2 shards
+    padded = {2 * -(-w // 2) for w in widths}
+    require({p["shape"][0] for p in pairs} == padded,
+            f"mesh: shard pairs at widths {[p['shape'][0] for p in pairs]}, "
+            f"the plans split {sorted(padded)}")
+    return cases, pairs
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1413,6 +1899,12 @@ def main() -> int:
             fulle_cases.append(case)
             print(json.dumps({"kernel_fulle_case": case, "card": card}), flush=True)
     lap("kernel_fulle")
+    row_cases = [row_base_case(kernel, shape, dtype, dev, gen)
+                 for kernel in ("fused_embrace", "fused_embrace_fulle")
+                 for shape in (TRAIN, EVAL)
+                 for dtype in (torch.float32, torch.bfloat16)]
+    print(json.dumps({"row_base_cases": row_cases, "card": card}), flush=True)
+    lap("row_base")
     for shape in (MAIN, TRAIN):
         grads = grad_phase(shape, dev, gen)
         print(json.dumps({"gradient": grads, "card": card}), flush=True)
@@ -1464,14 +1956,22 @@ def main() -> int:
             cli_out = cli_phase(data_dir, pipe)
             print(json.dumps({"cli": cli_out, "card": card}), flush=True)
             lap("cli")
+        with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
+            mesh_out, mesh_records = mesh_phase(workdir)
+        print(json.dumps({"mesh": mesh_out, "card": card}), flush=True)
+        lap("mesh")
     finally:
         K.fused_embrace = shapes.real
 
     # -- the kernel at every layout the serve, train, CV, data, sweep,
-    # report and CLI phases gave it --
+    # report, CLI and mesh phases gave it, the mesh workers' included --
     path_cases = [path_case(key, rec, dev) for key, rec in shapes.seen.items()]
     shapes.seen.clear()
-    print(json.dumps({"path_cases": path_cases, "card": card}), flush=True)
+    mesh_cases, pair_cases = mesh_shard_cases(mesh_records,
+                                              mesh_out["plan_widths"], dev)
+    del mesh_records
+    print(json.dumps({"path_cases": path_cases, "mesh_path_cases": mesh_cases,
+                      "mesh_shard_pairs": pair_cases, "card": card}), flush=True)
     lap("path_shapes")
     print(json.dumps({"phase_walls_s": walls, "card": card}), flush=True)
 
@@ -1493,8 +1993,9 @@ def main() -> int:
         row("embrace_fused_fwd", 39,
             serve["launches"] + train["launches"] + cv["launches"]
             + data_out["launches"] + sweep_out["launches"]
-            + report_out["launches"] + cli_out["launches"],
-            cases + path_cases),
+            + report_out["launches"] + cli_out["launches"]
+            + mesh_out["launches"],
+            cases + path_cases + mesh_cases + pair_cases),
         row("embrace_fused_fwd_fulle", 78, bench_out["launches_fulle"],
             fulle_cases)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1504,4 +2005,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(sys.argv[2]))
     sys.exit(main())

@@ -30,6 +30,11 @@ The user-facing surface on top of them:
 * ``utils.profiling`` (``StepTimer``, ``device_trace`` on
   ``torch.profiler``, ``annotate``) and ``utils.logging.get_logger``;
 * ``examples/torch_quickstart.py`` — the workflow in one script.
+
+Multi-device training (``parallel/mesh.py``): one process per device on
+``torch.distributed``; ``training.engine.fit``, ``train`` and
+``sweep.run_sweep`` take ``mesh=`` (a ``Mesh``, a ``MeshConfig``,
+``"auto"``); ``examples/torch_multichip_sweep.py`` runs a sweep over one.
 """
 
 from __future__ import annotations

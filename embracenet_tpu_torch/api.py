@@ -10,7 +10,8 @@
   >>> metrics = et.evaluate("models/...", pipe.cell_data("K562"))
 
 ``preprocess`` runs on the host; the others run on the card unless the
-caller passes ``device="cpu"``.
+caller passes ``device="cpu"``.  ``train`` takes a mesh (``resolve_mesh``):
+every rank of a world of processes calls it alike, and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -20,29 +21,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from embracenet_tpu_torch.config import CVConfig, MeshConfig, TrainConfig
+from embracenet_tpu_torch.config import CVConfig, TrainConfig
 from embracenet_tpu_torch.data.pipeline import Pipeline
 from embracenet_tpu_torch.models.reload import load_model
+from embracenet_tpu_torch.parallel.mesh import resolve_mesh
 from embracenet_tpu_torch.training.cv import KfoldCV, checkpoint_name
 from embracenet_tpu_torch.training.results import ResultsDict, baseline_auprc
-
-
-def resolve_mesh(mesh, device=None):
-    """Normalise a mesh argument as the JAX package's ``resolve_mesh``
-    does: None, ``"auto"`` on one device and a 1 x 1 ``MeshConfig`` are the
-    single-device path (None).  Anything wider raises: the multi-device
-    path is not ported (ROADMAP.md Queue 1 item 8)."""
-    if mesh is None:
-        return None
-    if mesh == "auto":
-        on_card = device is None or torch.device(device).type == "cuda"
-        if not on_card or torch.cuda.device_count() <= 1:
-            return None
-    elif isinstance(mesh, MeshConfig) and mesh.trial_axis * mesh.data_axis <= 1:
-        return None
-    raise NotImplementedError(f"mesh={mesh!r}: the multi-device path is not "
-                              "ported to PyTorch yet: ROADMAP.md Queue 1 "
-                              "item 8 (multi-device)")
 
 
 def preprocess(task: str, root: str = "data", dataset: dict | None = None,
@@ -71,7 +55,8 @@ def train(model: str, cell_line: str, task: str,
     only.  ``data=None`` takes the cell line from ``pipeline``, or from
     ``preprocess(task)`` when no pipeline is given.
 
-    ``mesh``: see :func:`resolve_mesh`; only the single-device path runs.
+    ``mesh``: a ``parallel.mesh.Mesh``, a ``MeshConfig``, ``"auto"`` or None
+    (:func:`resolve_mesh`); rank 0 alone writes ``results``.
 
     ``model_label``: the name that studies, checkpoints and the results
     entry are recorded under, when it is not ``model`` (two runs of one
@@ -112,7 +97,7 @@ def train(model: str, cell_line: str, task: str,
         name = label + ("_augmentation" if cv_cfg.augmentation else "")
         results.update(cell_line, task, name, scores)
         results.set_baseline(cell_line, task, baseline_auprc(data["y"]))
-        results.save()
+        results.save(mesh=mesh)
     return scores
 
 

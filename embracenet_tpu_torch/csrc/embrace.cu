@@ -6,9 +6,10 @@
 // What it computes, for every (row r, feature c) of the [B, E] output:
 //   d0 = relu(x0[r] . w0[:, c] + b0[c])          x0 [B, D0], w0 [D0, E]
 //   d1 = relu(x1[r] . w1[:, c] + b1[c])          x1 [B, D1], w1 [D1, E]
-//   u  = top 24 bits of Philox4x32-10(key = seed, counter = (r, c, 0, 0))
-//        word 0, times 2^-24: uniform on [0, 1), so p0 = 1 always picks
-//        modality 0 and p0 = 0 never does
+//   u  = top 24 bits of Philox4x32-10(key = seed,
+//        counter = (row_base + r, c, 0, 0)) word 0, times 2^-24: uniform on
+//        [0, 1), so p0 = 1 always picks modality 0 and p0 = 0 never does
+//        (row_base: the batch row of x0's row 0, for a shard of a batch)
 //   choose[r, c] = u < p0[r]                     (uint8)
 //   out[r, c]    = (choose ? d0 : d1) * e_mask[c] (float32)
 // The [B, E] docking activations never reach device memory.
@@ -415,6 +416,7 @@ struct Epilogue {
   int B, E;
   uint32_t seed;
   const long long* seed_dev;
+  int row_base;  // batch row of this launch's row 0 (a shard's first row)
 };
 
 __device__ __forceinline__ void finish(const Epilogue& ep, uint32_t key, int r,
@@ -422,7 +424,7 @@ __device__ __forceinline__ void finish(const Epilogue& ep, uint32_t key, int r,
   if (r >= ep.B || c >= ep.E) return;
   const float d0 = fmaxf(a0 + ep.b0[c], 0.f);
   const float d1 = fmaxf(a1 + ep.b1[c], 0.f);
-  const bool pick0 = draw_u(key, r, c) < ep.p0[r];
+  const bool pick0 = draw_u(key, ep.row_base + r, c) < ep.p0[r];
   const int64_t at = (int64_t)r * ep.E + c;
   ep.out[at] = (pick0 ? d0 : d1) * ep.e_mask[c];
   ep.choose[at] = pick0 ? 1 : 0;
@@ -768,7 +770,9 @@ int entry(int dtype, const void* x0, long long ld_x0, const void* x1,
 // The two launch entries, embrace_fused_fwd (tiled) and
 // embrace_fused_fwd_fulle (full-E): dtype 0 = float32 operands, 1 =
 // bfloat16 operands.  seed_dev: null, or a device pointer to one int64
-// whose low 32 bits replace `seed`.  Return the CUDA error code of the
+// whose low 32 bits replace `seed`.  row_base: added to every row's draw
+// counter, so a launch on rows [r, r + B) of a batch with row_base = r
+// draws what the whole batch's launch draws for those rows (0: the batch).  Return the CUDA error code of the
 // launch (0 = success); a bad argument returns cudaErrorInvalidValue.  They
 // launch on `stream` and do not synchronise.  Every operand's base must be
 // 16-byte aligned and every row stride (ld * element size) a multiple of 16
@@ -787,9 +791,10 @@ extern "C" int embrace_fused_fwd(int dtype, const void* x0, long long ld_x0,
                                  const float* p0, const float* e_mask,
                                  float* out, uint8_t* choose, int B, int D0,
                                  int D1, int E, unsigned int seed,
-                                 const long long* seed_dev, void* stream,
-                                 int bm, int split) {
-  const Epilogue ep{b0, b1, p0, e_mask, out, choose, B, E, seed, seed_dev};
+                                 const long long* seed_dev, int row_base,
+                                 void* stream, int bm, int split) {
+  const Epilogue ep{b0, b1, p0, e_mask, out, choose, B, E, seed, seed_dev,
+                    row_base};
   return entry<false>(dtype, x0, ld_x0, x1, ld_x1, w0, ld_w0, w1, ld_w1, ep, D0,
                       D1, stream, bm, split);
 }
@@ -803,9 +808,10 @@ extern "C" int embrace_fused_fwd_fulle(int dtype, const void* x0,
                                        const float* e_mask, float* out,
                                        uint8_t* choose, int B, int D0, int D1,
                                        int E, unsigned int seed,
-                                       const long long* seed_dev, void* stream,
-                                       int bm, int cluster) {
-  const Epilogue ep{b0, b1, p0, e_mask, out, choose, B, E, seed, seed_dev};
+                                       const long long* seed_dev, int row_base,
+                                       void* stream, int bm, int cluster) {
+  const Epilogue ep{b0, b1, p0, e_mask, out, choose, B, E, seed, seed_dev,
+                    row_base};
   return entry<true>(dtype, x0, ld_x0, x1, ld_x1, w0, ld_w0, w1, ld_w1, ep, D0,
                      D1, stream, bm, cluster);
 }

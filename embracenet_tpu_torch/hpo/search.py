@@ -24,6 +24,13 @@ streams a sequential fit of that fold would draw.  ``plan_buckets`` is
 called without ``in_features``, as the JAX package calls it, so its cost
 model counts 256 features whatever the data has and both packages form the
 same groups.  Fits run on the card unless ``device`` says otherwise.
+
+Under a mesh (``mesh=``, ``parallel/mesh.py``) every rank runs the same
+search: each fit gathers every trial's metrics to every rank, so every
+rank's sampler proposes the same trials from the same history.  Rank 0
+alone writes the study file and the checkpoints; the other ranks keep the
+study in memory, started from rank 0's trials (``study.open_study``), and
+take the best trial's weights from rank 0.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ from embracenet_tpu_torch.convert import tree_map, tree_to_numpy
 from embracenet_tpu_torch.hpo import space as space_mod
 from embracenet_tpu_torch.hpo.samplers import get_sampler, sample_n
 from embracenet_tpu_torch.hpo.study import (COMPLETE, PRUNED, MedianPruner,
-                                            PatientPruner, Study)
+                                            PatientPruner, Study, open_study)
+from embracenet_tpu_torch.parallel.mesh import broadcast, is_writer, resolve_mesh
 from embracenet_tpu_torch.training import engine
 from embracenet_tpu_torch.training.checkpoint import (load_checkpoint,
                                                       save_checkpoint)
@@ -80,7 +88,7 @@ def _prune_decision(prune, pruner, completed, epoch, value, hist, at_epoch):
 
 
 def _tell(study, number, flat, per_trial, pruned, intermediate,
-          checkpoint_dir, study_name, model):
+          checkpoint_dir, study_name, model, mesh=None):
     value = per_trial[1][-1] if per_trial[1] else 0.0
     study.tell(number, flat, None if pruned else value,
                PRUNED if pruned else COMPLETE, intermediate)
@@ -89,7 +97,7 @@ def _tell(study, number, flat, per_trial, pruned, intermediate,
         save_checkpoint(os.path.join(checkpoint_dir, f"{study_name}{number}"),
                         {"params": params, "bn_state": bn_state},
                         meta={"model": model, "model_params": flat,
-                              "value": value})
+                              "value": value}, mesh=mesh)
 
 
 def run_search(spec: ModelSpec,
@@ -106,9 +114,11 @@ def run_search(spec: ModelSpec,
                seed: int = 0,
                verbose: bool = False,
                fit_kwargs: dict | None = None,
-               device=None) -> SearchResult:
-    """Run (or resume) a study; returns the best trial across all runs."""
-    study = Study(study_name, storage)
+               device=None, mesh=None) -> SearchResult:
+    """Run (or resume) a study; returns the best trial across all runs.
+    ``mesh``: every fit's mesh (see the module docstring)."""
+    mesh = resolve_mesh(mesh, device)
+    study = open_study(study_name, storage, mesh)
     completed = study.completed_trials()
     remaining = max(0, n_trials - len(completed))
 
@@ -166,30 +176,32 @@ def run_search(spec: ModelSpec,
                 verbose=verbose,
                 report_fn=(lambda lt, e, v, idxs=idxs:
                            report_fn(idxs[lt], e, v)),
-                device=device,
+                device=device, mesh=mesh,
                 **(fit_kwargs or {}))
             _per_trial(result, idxs, per_trial)
 
         for t in range(remaining):
             _tell(study, numbers[t], flat_list[t], per_trial[t],
                   pruned_flags[t], intermediates[t], checkpoint_dir,
-                  study_name, model)
+                  study_name, model, mesh)
 
-    res = _study_result(study, study_name, checkpoint_dir, verbose)
+    res = _study_result(study, study_name, checkpoint_dir, verbose, mesh)
     study.close()
     return res
 
 
 def _study_result(study: Study, study_name: str, checkpoint_dir,
-                  verbose: bool) -> SearchResult:
-    """Best-trial summary of a (possibly just-updated) study."""
+                  verbose: bool, mesh=None) -> SearchResult:
+    """Best-trial summary of a (possibly just-updated) study; under a mesh
+    the best trial's weights are rank 0's file, broadcast."""
     best = study.best_trial
     best_model = None
-    if checkpoint_dir:
+    if checkpoint_dir and is_writer(mesh):
         path = os.path.join(checkpoint_dir, f"{study_name}{best.number}.npz")
         if os.path.exists(path):
             trees, _ = load_checkpoint(path)
             best_model = (trees["params"], trees.get("bn_state", {}))
+    best_model = broadcast(mesh, best_model)
     n_pruned = len(study.pruned_trials())
     res = SearchResult(best_params=best.params, best_value=best.value,
                        best_model=best_model,
@@ -214,7 +226,7 @@ def run_search_fused(spec: ModelSpec,
                      checkpoint_dir: str | None = None,
                      verbose: bool = False,
                      fit_kwargs: dict | None = None,
-                     device=None) -> list[SearchResult]:
+                     device=None, mesh=None) -> list[SearchResult]:
     """Several folds' hyperparameter searches as ONE population.
 
     ``fold_data``: per fold a ``(data_train, data_val)`` pair;
@@ -239,7 +251,8 @@ def run_search_fused(spec: ModelSpec,
                          "(architecture-dependent shapes cannot share a "
                          "population)")
     n_folds = len(fold_data)
-    studies = [Study(study_names[f], storage) for f in range(n_folds)]
+    mesh = resolve_mesh(mesh, device)
+    studies = [open_study(study_names[f], storage, mesh) for f in range(n_folds)]
     parts: list[tuple[int, int]] = []       # (fold, remaining)
     for f in range(n_folds):
         rem = max(0, n_trials - len(studies[f].completed_trials()))
@@ -324,7 +337,7 @@ def run_search_fused(spec: ModelSpec,
                 eval_plans=[eval_plans[i] for i in idxs],
                 init_seeds=np.asarray([init_seeds[i] for i in idxs], np.uint32),
                 run_seeds=np.asarray([run_seeds[i] for i in idxs], np.uint32),
-                device=device,
+                device=device, mesh=mesh,
                 **(fit_kwargs or {}))
             _per_trial(result, idxs, per_trial)
 
@@ -332,12 +345,12 @@ def run_search_fused(spec: ModelSpec,
             f, _ = fold_of[g]
             _tell(studies[f], numbers[g], flat_list[g], per_trial[g],
                   pruned_flags[g], intermediates[g], checkpoint_dir,
-                  study_names[f], model)
+                  study_names[f], model, mesh)
 
     results = []
     for f in range(n_folds):
         results.append(_study_result(studies[f], study_names[f],
-                                     checkpoint_dir, verbose))
+                                     checkpoint_dir, verbose, mesh))
         studies[f].close()
     return results
 

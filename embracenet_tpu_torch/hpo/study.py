@@ -148,3 +148,21 @@ class Study:
 
     def close(self):
         self._conn.close()
+
+
+def open_study(study_name: str, storage: str, mesh=None) -> Study:
+    """The study a rank of ``mesh`` works on: rank 0's in ``storage``;
+    every other rank's in memory, holding rank 0's trials (broadcast), so
+    every rank resumes and samples alike and rank 0 alone writes the
+    file."""
+    from embracenet_tpu_torch.parallel.mesh import broadcast, is_writer
+
+    if mesh is None or mesh.device_mesh is None:
+        return Study(study_name, storage)
+    writer = is_writer(mesh)
+    study = Study(study_name, storage if writer else ":memory:")
+    trials = broadcast(mesh, study.trials if writer else None)
+    if not writer:
+        for t in trials:
+            study.tell(t.number, t.params, t.value, t.state, t.intermediate)
+    return study

@@ -98,7 +98,7 @@ def flat_bucket(max_depth: int, max_channels: tuple | None) -> int:
 def features(params, bn_state, hp, x, *, train: bool = False, generator=None,
              row_mask=None, compute_dtype=None, max_depth: int | None = None,
              max_channels: tuple | None = None,
-             max_kernels: tuple | None = None):
+             max_kernels: tuple | None = None, shard=None):
     """Headless forward (reference ``CNN_pre``) ->
     ``(flat [B, FB], flat_mask [FB], new_bn_state)`` with
     ``FB = flat_bucket(max_depth, max_channels)``.
@@ -107,7 +107,9 @@ def features(params, bn_state, hp, x, *, train: bool = False, generator=None,
     passes the population's deepest trial); ``max_channels`` and
     ``max_kernels`` slice weights to the population's per-layer maxima
     (exact, see the JAX module).  Params keep full supernet shapes; BN
-    state is written back into full-shape buffers.
+    state is written back into full-shape buffers.  ``shard``: this rank's
+    rows of a data-sharded batch (``parallel.mesh.BatchShard``: BatchNorm
+    moments summed over the data axis, dropout drawn by global row).
     """
     n_layers = int(hp["n_layers"])
     max_depth = max_depth or CNN_MAX_LAYERS
@@ -128,7 +130,7 @@ def features(params, bn_state, hp, x, *, train: bool = False, generator=None,
             + params[f"conv_b{i}"][:c_out][None, :, None]
         bn_p = {k: v[:c_out] for k, v in params[f"bn{i}"].items()}
         bn_s = {k: v[:c_out] for k, v in bn_state[f"bn{i}"].items()}
-        z, bn_new = batchnorm_apply(z, bn_p, bn_s, train, row_mask)
+        z, bn_new = batchnorm_apply(z, bn_p, bn_s, train, row_mask, shard)
         new_bn_state[f"bn{i}"] = {
             k: torch.cat([bn_new[k], bn_state[f"bn{i}"][k][c_out:]])
             for k in bn_new}
@@ -137,7 +139,8 @@ def features(params, bn_state, hp, x, *, train: bool = False, generator=None,
         # trial reads it, and so the generator's later draws (modality
         # dropout, embracement, post layers) do not depend on how deep the
         # population's deepest trial is
-        z = _dropout(z, hp["dropout"][i], generator, train and i < n_layers)
+        z = _dropout(z, hp["dropout"][i], generator, train and i < n_layers,
+                     shard)
         h = z * width_mask(c_out, hp["channels"][i], x.device)[None, :, None]
         flat = h.reshape(h.shape[0], -1)
         flats.append(F.pad(flat, (0, flat_bk - flat.shape[1])))
@@ -153,7 +156,7 @@ def features(params, bn_state, hp, x, *, train: bool = False, generator=None,
 def apply(params, bn_state, hp, x, *, train: bool = False, generator=None,
           row_mask=None, compute_dtype=None, max_depth: int | None = None,
           max_channels: tuple | None = None,
-          max_kernels: tuple | None = None):
+          max_kernels: tuple | None = None, shard=None):
     """Headful forward -> (logits [B, n_classes], new_bn_state).  The FC
     head is linear->linear->linear with no activations (`CNN_net.py:77-83`)."""
     flat, _, new_bn_state = features(params, bn_state, hp, x, train=train,
@@ -161,7 +164,7 @@ def apply(params, bn_state, hp, x, *, train: bool = False, generator=None,
                                      compute_dtype=compute_dtype,
                                      max_depth=max_depth,
                                      max_channels=max_channels,
-                                     max_kernels=max_kernels)
+                                     max_kernels=max_kernels, shard=shard)
     h = linear(flat, params["w_fc1"][:flat.shape[1], :], params["b_fc1"],
                compute_dtype)
     h = linear(h, params["w_fc2"], params["b_fc2"], compute_dtype)

@@ -123,8 +123,9 @@ def init(generator: torch.Generator, hp, n_classes: int = 2):
 
 
 def apply(params, bn_state, hp, x, *, train: bool = False, seed: int = 0,
-          row_mask=None, compute_dtype=None):
-    """x: one-hot [B, 4, 256] -> (logits [B, 2], new_bn_state)."""
+          row_mask=None, compute_dtype=None, shard=None):
+    """x: one-hot [B, 4, 256] -> (logits [B, 2], new_bn_state); ``shard``:
+    this rank's rows of a data-sharded batch (``parallel.mesh.BatchShard``)."""
     depth = int(hp["n_layers"])
     gen = torch.Generator(device=x.device).manual_seed(int(seed))
     new_bn = dict(bn_state)
@@ -133,9 +134,10 @@ def apply(params, bn_state, hp, x, *, train: bool = False, seed: int = 0,
         z = conv1d_ncw(h, params[f"conv_w{i}"], compute_dtype) \
             + params[f"conv_b{i}"][None, :, None]
         z, new_bn[f"bn{i}"] = batchnorm_apply(z, params[f"bn{i}"],
-                                              bn_state[f"bn{i}"], train, row_mask)
+                                              bn_state[f"bn{i}"], train, row_mask,
+                                              shard)
         z = maxpool1d(torch.relu(z))
-        h = _dropout(z, hp["dropout"][i], gen, train)
+        h = _dropout(z, hp["dropout"][i], gen, train, shard)
     b = h.shape[0]
     seq = h.contiguous().reshape(b, -1, 4)   # [B, C*L/4, 4] (reference :84)
     out = lstm_apply(params["lstm"], seq, train)

@@ -82,14 +82,15 @@ def apply(params, bn_state, hp, x_ffnn, x_cnn, *, train: bool = False,
           cnn_max_channels: tuple | None = None,
           cnn_max_kernels: tuple | None = None,
           ffnn_max_width: int | None = None,
-          post_max: int | None = None):
+          post_max: int | None = None, shard=None):
     """Forward -> (logits [B, 2], new_bn_state).
 
     The ``*_max`` statics are width buckets (population maxima): weights
     are sliced to the bucket dims, exactly equivalent to the full supernet.
     Post layers beyond ``n_post`` pass their input through, so they are not
     computed (the JAX package computes all three and selects); the first
-    always runs, as there.
+    always runs, as there.  ``shard``: this rank's rows of a data-sharded
+    batch (``parallel.mesh.BatchShard``).
     """
     gen = torch.Generator(device=x_ffnn.device).manual_seed(int(seed))
     PB = post_max or P
@@ -97,12 +98,12 @@ def apply(params, bn_state, hp, x_ffnn, x_cnn, *, train: bool = False,
     f_ffnn, _ = ffnn_mod.features(params["ffnn"], hp["ffnn"], x_ffnn,
                                   train=train, generator=gen,
                                   compute_dtype=compute_dtype,
-                                  max_width=ffnn_max_width)
+                                  max_width=ffnn_max_width, shard=shard)
     f_cnn, _, new_bn_state = cnn_mod.features(
         params["cnn"], bn_state, hp["cnn"], x_cnn, train=train, generator=gen,
         row_mask=row_mask, compute_dtype=compute_dtype,
         max_depth=cnn_max_depth, max_channels=cnn_max_channels,
-        max_kernels=cnn_max_kernels)
+        max_kernels=cnn_max_kernels, shard=shard)
 
     h = torch.cat([f_ffnn, f_cnn], dim=-1)  # [B, FW + FB]
     # post_w0 rows follow the [FFNN_MAX_WIDTH | FLAT_MAX] concat layout;
@@ -122,7 +123,7 @@ def apply(params, bn_state, hp, x_ffnn, x_cnn, *, train: bool = False,
         mask = width_mask(PB, hp["post_widths"][i], h.device)
         z = torch.relu(linear(out, w, params[f"post_b{i}"][:PB],
                               compute_dtype)) * mask
-        out = _dropout(z, hp["post_dropout"][i], gen, train) * mask
+        out = _dropout(z, hp["post_dropout"][i], gen, train, shard) * mask
 
     logits = linear(out, params["head_w"][:PB, :], params["head_b"],
                     compute_dtype)

@@ -22,6 +22,12 @@ Philox key is drawn from that generator (as the JAX package draws it from
 its own key), so the kernel's stream is independent of the generator's;
 in eval mode (serving) the kernel is keyed by ``seed`` itself.  Same
 distribution as the JAX package, different RNG stream.
+
+Under a data-sharded fit (``shard``, a ``parallel.mesh.BatchShard``) every
+per-row draw is taken by global row: the generator's draws at the whole
+batch's shape, cut to the shard's rows, and the kernel's Philox counter
+offset by ``row_base`` = the shard's first row.  A shard then draws exactly
+what the unsharded step draws for its rows.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from embracenet_tpu_torch.models.layers import (
     as_dtype,
     dropout as _dropout,
     linear,
+    rand,
     torch_uniform_init,
     width_mask,
 )
@@ -52,14 +59,15 @@ P = 512                       # post-layer space (max of post width menus)
 
 
 def embrace(dockings, generator=None, availabilities=None,
-            selection_probabilities=None, e_mask=None, u=None):
+            selection_probabilities=None, e_mask=None, u=None, shard=None):
     """Stochastic embracement over a list of docked modalities.
 
     ``dockings``: list of [B, W] tensors (already ReLU-ed and e-masked).
     With two modalities the draw is ``u < p0``, where ``u`` [B, E] is
     given (a test feeds the JAX package's uniforms) or drawn from
     ``generator`` at the full embracement width and sliced to W, so a
-    width-bucketed docking selects exactly as the unbucketed one.
+    width-bucketed docking selects exactly as the unbucketed one (and by
+    global row for a ``shard`` of a batch).
     """
     m = len(dockings)
     b, width = dockings[0].shape
@@ -73,7 +81,7 @@ def embrace(dockings, generator=None, availabilities=None,
 
     if m == 2:
         if u is None:
-            u = torch.rand((b, E), generator=generator, device=dev)
+            u = rand((b, E), generator, dev, shard)
         out = torch.where(u[:, :width] < p[:, 0:1], dockings[0], dockings[1])
     else:
         idx = torch.multinomial(p, width, replacement=True, generator=generator)
@@ -148,14 +156,14 @@ def apply(params, bn_state, hp, x_ffnn, x_cnn, *, train: bool = False,
           ffnn_max_width: int | None = None,
           embrace_max: int | None = None,
           post_max: int | None = None,
-          fused: bool = False, u=None):
+          fused: bool = False, u=None, shard=None):
     """Forward -> (logits [B, 2], new_bn_state).
 
     The ``*_max`` statics are width buckets (population maxima): weights
     are sliced so compute costs the bucket dims, exactly equivalent to the
     full supernet.  ``fused=True`` runs docking + embracement in the fused
     kernel; ``u`` ([B, E] uniforms) feeds the unfused draw instead of the
-    generator.
+    generator.  ``shard``: this rank's rows of a data-sharded batch.
     """
     dev = x_ffnn.device
     gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -165,12 +173,12 @@ def apply(params, bn_state, hp, x_ffnn, x_cnn, *, train: bool = False,
     f_ffnn, _ = ffnn_mod.features(params["ffnn"], hp["ffnn"], x_ffnn,
                                   train=train, generator=gen,
                                   compute_dtype=compute_dtype,
-                                  max_width=ffnn_max_width)
+                                  max_width=ffnn_max_width, shard=shard)
     f_cnn, _, new_bn_state = cnn_mod.features(
         params["cnn"], bn_state, hp["cnn"], x_cnn, train=train, generator=gen,
         row_mask=row_mask, compute_dtype=compute_dtype,
         max_depth=cnn_max_depth, max_channels=cnn_max_channels,
-        max_kernels=cnn_max_kernels)
+        max_kernels=cnn_max_kernels, shard=shard)
 
     e_mask = width_mask(EB, hp["embrace_size"], dev)
     b = f_ffnn.shape[0]
@@ -178,7 +186,7 @@ def apply(params, bn_state, hp, x_ffnn, x_cnn, *, train: bool = False,
     # then per-sample single-modality availability
     if availabilities is None and train and modality_dropout:
         coin = torch.rand((), generator=gen, device=dev)
-        target = torch.round(torch.rand((b,), generator=gen, device=dev)).long()
+        target = torch.round(rand((b,), gen, dev, shard)).long()
         one_hot_avail = torch.nn.functional.one_hot(target, 2).float()
         availabilities = torch.where(coin >= MODALITY_DROPOUT_P,
                                      one_hot_avail, torch.ones((b, 2), device=dev))
@@ -207,14 +215,15 @@ def apply(params, bn_state, hp, x_ffnn, x_cnn, *, train: bool = False,
         # biases as float32, as the JAX wrapper casts them (bf16 live params)
         h, _ = fused_embrace(x0.contiguous(), x1.contiguous(), w0,
                              params["dock0_b"][:EB].float(), w1,
-                             params["dock1_b"][:EB].float(), p0, e_mask, kseed)
+                             params["dock1_b"][:EB].float(), p0, e_mask, kseed,
+                             row_base=shard.lo if shard is not None else 0)
     else:
         d0 = torch.relu(linear(f_ffnn, w0, params["dock0_b"][:EB],
                                compute_dtype)) * e_mask
         d1 = torch.relu(linear(f_cnn, w1, params["dock1_b"][:EB],
                                compute_dtype)) * e_mask
         h = embrace([d0, d1], gen, availabilities=availabilities,
-                    selection_probabilities=p, e_mask=e_mask, u=u)
+                    selection_probabilities=p, e_mask=e_mask, u=u, shard=shard)
 
     # post MLP (0-2 layers) with pass-through selection: layers beyond
     # n_post are not computed
@@ -227,7 +236,7 @@ def apply(params, bn_state, hp, x_ffnn, x_cnn, *, train: bool = False,
         mask = width_mask(PB, hp["post_widths"][i], dev)
         z = torch.relu(linear(inp, w, params[f"post_b{i}"][:PB],
                               compute_dtype)) * mask
-        hp_post = _dropout(z, hp["post_dropout"][i], gen, train) * mask
+        hp_post = _dropout(z, hp["post_dropout"][i], gen, train, shard) * mask
 
     head_in = torch.cat([h * float(n_post == 0), hp_post * float(n_post > 0)],
                         dim=-1)

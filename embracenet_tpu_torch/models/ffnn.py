@@ -63,14 +63,15 @@ def init(generator: torch.Generator, hp, in_features: int, n_classes: int = 2,
 
 
 def features(params, hp, x, *, train: bool = False, generator=None,
-             compute_dtype=None, max_width: int | None = None):
+             compute_dtype=None, max_width: int | None = None, shard=None):
     """Headless forward -> ([B, W] masked features, [W] output mask).
 
     ``max_width`` (<= H) is the population's width bucket: weights are
     sliced so the hidden space costs W instead of H (exact: masked
     features beyond any trial's width are zero and live ones a prefix).
     Layers beyond ``n_layers`` pass their input through, so they are not
-    computed.
+    computed.  ``shard``: this rank's rows of a data-sharded batch
+    (``parallel.mesh.BatchShard``; dropout draws by global row).
     """
     n_layers = int(hp["n_layers"])
     W = max_width or H
@@ -80,15 +81,16 @@ def features(params, hp, x, *, train: bool = False, generator=None,
         w = params[f"w{i}"][:, :W] if i == 0 else params[f"w{i}"][:W, :W]
         mask = width_mask(W, hp["widths"][i], x.device)
         z = torch.relu(linear(inp, w, params[f"b{i}"][:W], compute_dtype)) * mask
-        h = _dropout(z, hp["dropout"][i], generator, train) * mask
+        h = _dropout(z, hp["dropout"][i], generator, train, shard) * mask
         out_mask = mask
     return h, out_mask
 
 
 def apply(params, hp, x, *, train: bool = False, generator=None,
-          compute_dtype=None, max_width: int | None = None):
+          compute_dtype=None, max_width: int | None = None, shard=None):
     """Headful forward -> logits [B, n_classes] (reference ``FFNN``)."""
     h, _ = features(params, hp, x, train=train, generator=generator,
-                    compute_dtype=compute_dtype, max_width=max_width)
+                    compute_dtype=compute_dtype, max_width=max_width,
+                    shard=shard)
     return linear(h, params["w_head"][:h.shape[1], :], params["b_head"],
                   compute_dtype)

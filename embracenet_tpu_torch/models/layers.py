@@ -87,14 +87,25 @@ def kernel_tap_mask(max_kernel: int, kernel, device=None) -> torch.Tensor:
     return ((idx >= lo) & (idx < lo + int(kernel))).float()
 
 
+def rand(shape, generator: torch.Generator | None, device,
+         shard=None) -> torch.Tensor:
+    """``torch.rand(shape)``; for a ``shard`` of a batch
+    (``parallel.mesh.BatchShard``) the draw of the whole batch cut to the
+    shard's rows, so a data-sharded step draws what the unsharded step
+    draws for those rows."""
+    if shard is None:
+        return torch.rand(shape, generator=generator, device=device)
+    return shard.rand(shape, generator, device)
+
+
 def dropout(x: torch.Tensor, rate, generator: torch.Generator | None,
-            train: bool) -> torch.Tensor:
+            train: bool, shard=None) -> torch.Tensor:
     """Inverted dropout, torch semantics, drawn from ``generator`` (a
-    ``torch.Generator`` on ``x``'s device)."""
+    ``torch.Generator`` on ``x``'s device) by global row (:func:`rand`)."""
     if not train:
         return x
     keep = 1.0 - float(rate)
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = rand(x.shape, generator, x.device, shard) < keep
     return torch.where(mask, x / max(keep, 1e-8), torch.zeros_like(x))
 
 
@@ -146,12 +157,14 @@ def batchnorm_init(n_channels: int):
     return params, state
 
 
-def batchnorm_apply(x, params, state, train: bool, row_mask=None):
+def batchnorm_apply(x, params, state, train: bool, row_mask=None, shard=None):
     """BatchNorm1d over [B, C, L] (stats over B and L per channel).
 
     ``row_mask`` ([B]) excludes padded rows from the batch statistics so a
-    padded static batch normalises identically to a ragged one.  Running
-    stats use the unbiased variance, torch-style.  Returns (y, new_state).
+    padded static batch normalises identically to a ragged one.  For a
+    ``shard`` of a data-sharded batch the moments are sums over the data
+    axis (differentiable all-reduces, as SyncBatchNorm's).  Running stats
+    use the unbiased variance, torch-style.  Returns (y, new_state).
     """
     scale = params["scale"][None, :, None]
     bias = params["bias"][None, :, None]
@@ -164,9 +177,15 @@ def batchnorm_apply(x, params, state, train: bool, row_mask=None):
     if row_mask is None:
         row_mask = torch.ones(x.shape[0], device=x.device)
     m = row_mask.float()[:, None, None]
-    n = torch.clamp(m.sum() * x.shape[-1], min=1.0)
-    mean = (x * m).sum(dim=(0, 2)) / n
-    var = (((x - mean[None, :, None]) ** 2) * m).sum(dim=(0, 2)) / n
+    sum_x, count = (x * m).sum(dim=(0, 2)), m.sum()
+    if shard is not None:
+        sum_x, count = shard.sum(sum_x, count)
+    n = torch.clamp(count * x.shape[-1], min=1.0)
+    mean = sum_x / n
+    sq = (((x - mean[None, :, None]) ** 2) * m).sum(dim=(0, 2))
+    if shard is not None:
+        sq = shard.sum(sq)
+    var = sq / n
     inv = torch.rsqrt(var + BN_EPS)
     y = (x - mean[None, :, None]) * inv[None, :, None]
     unbiased = var * n / torch.clamp(n - 1.0, min=1.0)

@@ -40,7 +40,10 @@ wrapper always cast them to bfloat16.
 
 ``seed`` is an int or a 0-d int64 tensor on the operands' device; the
 kernels read a tensor seed from device memory, so a seed drawn on the card
-never waits for the host.
+never waits for the host.  ``row_base`` (0 by default) offsets the row of
+every draw: a launch on rows ``[r, r + b)`` of a batch, with ``row_base =
+r``, draws Philox (seed, r + i, c) for its row i, as the launch on the whole
+batch draws for that row (a data-sharded fit's shard, ``parallel/mesh.py``).
 
 Both kernels read their operands with TMA, which needs each base
 16-byte aligned and each row stride a multiple of 16 bytes
@@ -128,8 +131,9 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        # ..., B, D0, D1, E, seed, seed_dev, row_base, stream
         common = [i32, p, i64, p, i64, p, i64, p, i64, p, p, p, p, p, p,
-                  i32, i32, i32, i32, ctypes.c_uint, p, p]
+                  i32, i32, i32, i32, ctypes.c_uint, p, i32, p]
         lib.embrace_fused_fwd.argtypes = common + [i32, i32]   # bm, split
         lib.embrace_fused_fwd_fulle.argtypes = common + [i32, i32]   # bm, cluster
         lib.embrace_fused_fwd_clusters.argtypes = [i32] * 6
@@ -153,7 +157,7 @@ def fused_embrace_reference(x0, x1, w0, b0, w1, b1, p0, e_mask, u):
     return torch.where(pick0, d0, d1) * e_mask, pick0.to(torch.uint8)
 
 
-def _check(x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
+def _check(x0, x1, w0, b0, w1, b1, p0, e_mask, seed, row_base=0):
     dev = x0.device
     b, d0 = x0.shape
     d1, e = x1.shape[1], w0.shape[1]
@@ -183,6 +187,9 @@ def _check(x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
         if t.shape[1] > 1 and t.stride(1) != 1:
             raise ValueError(f"fused_embrace: {name} needs unit stride "
                              f"along its last axis")
+    if not 0 <= row_base <= 2 ** 31 - 1 - b:
+        raise ValueError(f"fused_embrace: row_base {row_base} with {b} rows "
+                         f"leaves the draw's 31-bit row counter")
     if isinstance(seed, torch.Tensor):
         if seed.shape != () or seed.dtype != torch.int64 or seed.device != dev:
             raise ValueError(f"fused_embrace: a tensor seed must be a 0-d "
@@ -390,15 +397,19 @@ def _launch_args(entry: str, x0, x1, w0, w1):
     return x0, (p.bm, p.cluster)
 
 
-def _forward(entry: str, x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
+def _forward(entry: str, x0, x1, w0, b0, w1, b1, p0, e_mask, seed,
+             row_base=0):
     """``(out, choose)`` from the kernel ``entry`` on a CUDA tensor, or from
-    the plain version with ``torch.Generator().manual_seed(seed)``
-    uniforms on a CPU tensor."""
-    _check(x0, x1, w0, b0, w1, b1, p0, e_mask, seed)
+    the plain version on a CPU tensor: rows ``[row_base, row_base + B)`` of
+    the uniforms ``torch.Generator().manual_seed(seed)`` draws for a batch
+    of ``row_base + B`` rows (the CPU generator fills rows in order, so
+    they are the whole batch's rows)."""
+    row_base = int(row_base)
+    _check(x0, x1, w0, b0, w1, b1, p0, e_mask, seed, row_base)
     b, e = x0.shape[0], w0.shape[1]
     if x0.device.type == "cpu":
         gen = torch.Generator().manual_seed(int(seed))
-        u = torch.rand((b, e), generator=gen)
+        u = torch.rand((row_base + b, e), generator=gen)[row_base:]
         return fused_embrace_reference(x0, x1, w0, b0, w1, b1, p0, e_mask, u)
     if x0.device.type != "cuda":
         raise ValueError(f"fused_embrace: unsupported device {x0.device}")
@@ -418,7 +429,8 @@ def _forward(entry: str, x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
             w0.data_ptr(), w0.stride(0), w1.data_ptr(), w1.stride(0),
             b0.data_ptr(), b1.data_ptr(), p0.data_ptr(), e_mask.data_ptr(),
             out.data_ptr(), choose.data_ptr(),
-            b, w0.shape[0], x1.shape[1], e, seed_val, seed_ptr, stream, *plan)
+            b, w0.shape[0], x1.shape[1], e, seed_val, seed_ptr, row_base,
+            stream, *plan)
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed with error {err} "
                            f"({torch.cuda.get_device_name(x0.device)})")
@@ -451,10 +463,10 @@ class FusedEmbrace(torch.autograd.Function):
     differentiated).  Each returned gradient has its input's dtype."""
 
     @staticmethod
-    def forward(ctx, x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
+    def forward(ctx, x0, x1, w0, b0, w1, b1, p0, e_mask, seed, row_base=0):
         global LAUNCHES
         out, choose = _forward("embrace_fused_fwd", x0, x1, w0, b0, w1, b1,
-                               p0, e_mask, seed)
+                               p0, e_mask, seed, row_base)
         if out.is_cuda:
             LAUNCHES += 1
         ctx.save_for_backward(x0, x1, w0, w1, e_mask, choose, out)
@@ -467,10 +479,10 @@ class FusedEmbrace(torch.autograd.Function):
         dx0, dx1, dw0, db0, dw1, db1 = embrace_backward(g, x0, x1, w0, w1,
                                                         e_mask, choose, out)
         return (dx0.to(x0.dtype), dx1.to(x1.dtype), dw0.to(w0.dtype), db0,
-                dw1.to(w1.dtype), db1, None, None, None)
+                dw1.to(w1.dtype), db1, None, None, None, None)
 
 
-def fused_embrace(x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
+def fused_embrace(x0, x1, w0, b0, w1, b1, p0, e_mask, seed, row_base=0):
     """Fused docking + stochastic embracement -> ``(out [B, E] float32,
     choose [B, E] uint8)``, differentiable in x0, x1, w0, b0, w1, b1.
 
@@ -478,14 +490,17 @@ def fused_embrace(x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
     all four alike; the weights may be row-strided views, and their
     gradients land in the viewed slice of the base tensor); b0, b1, e_mask
     [E] and p0 [B] float32 (p0 = probability of modality 0 per row); seed
-    an int or a 0-d int64 tensor on the operands' device.  CUDA tensors go
-    to the kernel; CPU tensors to the plain version with uniforms from
+    an int or a 0-d int64 tensor on the operands' device; ``row_base`` the
+    batch row of x0's first row (a shard of a batch draws that batch's
+    uniforms for its rows).  CUDA tensors go to the kernel; CPU tensors to
+    the plain version with uniforms from
     ``torch.Generator().manual_seed(seed)``.
     """
-    return FusedEmbrace.apply(x0, x1, w0, b0, w1, b1, p0, e_mask, seed)
+    return FusedEmbrace.apply(x0, x1, w0, b0, w1, b1, p0, e_mask, seed,
+                              row_base)
 
 
-def fused_embrace_fulle(x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
+def fused_embrace_fulle(x0, x1, w0, b0, w1, b1, p0, e_mask, seed, row_base=0):
     """The full-E kernel: :func:`fused_embrace`'s forward with a cluster of
     CTAs spanning E that share each x tile (:func:`fulle_plan`).  Forward
     only, as the JAX ``_fused_fwd_fulle``: it raises where autograd would
@@ -497,7 +512,7 @@ def fused_embrace_fulle(x0, x1, w0, b0, w1, b1, p0, e_mask, seed):
         raise RuntimeError("fused_embrace_fulle is forward only; use "
                            "fused_embrace for a differentiable call")
     out, choose = _forward("embrace_fused_fwd_fulle", x0, x1, w0, b0, w1, b1,
-                           p0, e_mask, seed)
+                           p0, e_mask, seed, row_base)
     if out.is_cuda:
         LAUNCHES_FULLE += 1
     return out, choose

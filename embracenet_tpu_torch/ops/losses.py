@@ -7,6 +7,10 @@ with Inverse-Number-of-Samples weights normalised over the two classes
 `models/utils/training_models.py:107-108`).  Torch's weighted CE divides by
 the sum of the weights of the realised targets, not the batch size; a
 padding mask extends it so a padded batch gives the ragged batch's value.
+For a ``shard`` of a data-sharded batch (``parallel.mesh.BatchShard``) the
+class counts and the normaliser are sums over the data axis, so each
+shard's loss is its share of the whole batch's and the shards' losses sum
+to it.
 """
 
 from __future__ import annotations
@@ -14,13 +18,15 @@ from __future__ import annotations
 import torch
 
 
-def ins_weights(target, mask=None):
+def ins_weights(target, mask=None, shard=None):
     """Normalised inverse-number-of-samples weights ``(w_pos, w_neg)``
-    (`models/utils/utils.py:121-140`)."""
+    (`models/utils/utils.py:121-140`), of the whole batch for a ``shard``."""
     target = torch.as_tensor(target).float()
     mask = torch.ones_like(target) if mask is None else torch.as_tensor(mask).float()
     pos = (target * mask).sum()
     neg = ((1.0 - target) * mask).sum()
+    if shard is not None:
+        pos, neg = shard.sum(pos, neg)
     zero = torch.zeros_like(pos)
     pos_inv = torch.where(pos > 0, 1.0 / torch.clamp(pos, min=1.0), zero)
     neg_inv = torch.where(neg > 0, 1.0 / torch.clamp(neg, min=1.0), zero)
@@ -28,7 +34,8 @@ def ins_weights(target, mask=None):
     return pos_inv / denom, neg_inv / denom
 
 
-def weighted_cross_entropy(logits, target, mask=None, class_weights=None):
+def weighted_cross_entropy(logits, target, mask=None, class_weights=None,
+                           shard=None):
     """``sum_i w[y_i] * nll_i / sum_i w[y_i]`` over unmasked rows (torch
     ``CrossEntropyLoss(weight=...)``, ``reduction='mean'``); per-batch INS
     weights when ``class_weights`` is None, else ``(w_neg, w_pos)``."""
@@ -36,10 +43,11 @@ def weighted_cross_entropy(logits, target, mask=None, class_weights=None):
     mask = (torch.ones(target.shape, device=target.device) if mask is None
             else torch.as_tensor(mask).float())
     if class_weights is None:
-        w_pos, w_neg = ins_weights(target, mask)
+        w_pos, w_neg = ins_weights(target, mask, shard)
     else:
         w_neg, w_pos = class_weights  # torch order: weight=[w_neg, w_pos]
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, target[..., None])[..., 0]
     w = torch.where(target == 1, w_pos, w_neg) * mask
-    return (w * nll).sum() / torch.clamp(w.sum(), min=1e-30)
+    total = w.sum() if shard is None else shard.sum(w.sum())
+    return (w * nll).sum() / torch.clamp(total, min=1e-30)

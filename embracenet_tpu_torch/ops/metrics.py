@@ -6,7 +6,10 @@ argmax(output))`` (`BIOINF_tesi/models/utils/utils.py:80-86`): average
 precision of the *hard* argmax prediction.  With binary scores AP collapses
 to ``P1 * R1 + prevalence * (1 - R1)`` (0 when there are no positives, the
 reference's NaN -> 0).  :func:`auprc_prob` is the probability-based
-variant.  Every metric takes an optional row ``mask``.
+variant.  Every metric takes an optional row ``mask``; the ones a fit
+reads take a ``shard`` of a data-sharded batch (``parallel.mesh.BatchShard``)
+and score the whole batch: counts summed over the data axis, scores
+gathered.
 """
 
 from __future__ import annotations
@@ -22,13 +25,15 @@ def _mask(mask, like):
     return torch.ones_like(like) if mask is None else _f32(mask)
 
 
-def _counts(pred, target, mask):
+def _counts(pred, target, mask, shard=None):
     pred, target = _f32(pred), _f32(target)
     mask = _mask(mask, target)
     tp = (pred * target * mask).sum()
     fp = (pred * (1.0 - target) * mask).sum()
     fn = ((1.0 - pred) * target * mask).sum()
     tn = ((1.0 - pred) * (1.0 - target) * mask).sum()
+    if shard is not None:
+        return shard.sum(tp, fp, fn, tn)
     return tp, fp, fn, tn
 
 
@@ -36,13 +41,14 @@ def _safe_div(num, den, cond):
     return torch.where(cond, num / torch.clamp(den, min=1.0), torch.zeros_like(num))
 
 
-def auprc_argmax(logits, target, mask=None):
+def auprc_argmax(logits, target, mask=None, shard=None):
     """Reference-parity AUPRC on argmax predictions."""
-    return auprc_from_binary_pred(torch.argmax(_f32(logits), dim=-1), target, mask)
+    return auprc_from_binary_pred(torch.argmax(_f32(logits), dim=-1), target,
+                                  mask, shard)
 
 
-def auprc_from_binary_pred(pred, target, mask=None):
-    tp, fp, fn, tn = _counts(pred, target, mask)
+def auprc_from_binary_pred(pred, target, mask=None, shard=None):
+    tp, fp, fn, tn = _counts(pred, target, mask, shard)
     n_pos = tp + fn
     n_tot = tp + fp + fn + tn
     prevalence = _safe_div(n_pos, n_tot, n_tot > 0)
@@ -52,11 +58,13 @@ def auprc_from_binary_pred(pred, target, mask=None):
     return torch.where(n_pos > 0, ap, torch.zeros_like(ap))
 
 
-def auprc_prob(scores, target, mask=None):
+def auprc_prob(scores, target, mask=None, shard=None):
     """Average precision from continuous scores (sklearn's step form: one
     point per distinct score)."""
     scores, target = _f32(scores), _f32(target)
     mask = _mask(mask, target)
+    if shard is not None:
+        scores, target, mask = shard.gather(scores, target, mask)
     neg_inf = torch.finfo(torch.float32).min
     s = torch.where(mask > 0, scores, torch.full_like(scores, neg_inf))
     order = torch.argsort(-s, stable=True)
@@ -110,11 +118,11 @@ def auroc(scores, target, mask=None):
     return torch.where((n_pos > 0) & (n_neg > 0), auc, torch.zeros_like(auc))
 
 
-def f1_precision_recall(logits, target, mask=None):
+def f1_precision_recall(logits, target, mask=None, shard=None):
     """Macro precision/recall/F1 with ``zero_division=0``
     (`models/utils/utils.py:89-94`) -> tensor ``[precision, recall, f1]``."""
     pred = torch.argmax(_f32(logits), dim=-1)
-    tp, fp, fn, tn = _counts(pred, target, mask)
+    tp, fp, fn, tn = _counts(pred, target, mask, shard)
 
     def _prf(tp_, fp_, fn_):
         prec = _safe_div(tp_, tp_ + fp_, tp_ + fp_ > 0)

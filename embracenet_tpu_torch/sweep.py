@@ -24,6 +24,7 @@ import time
 from embracenet_tpu_torch import CELL_LINES, TASKS, api
 from embracenet_tpu_torch.config import CVConfig, TrainConfig
 from embracenet_tpu_torch.data.sampling import get_imbalance
+from embracenet_tpu_torch.parallel.mesh import broadcast
 from embracenet_tpu_torch.training.results import ResultsDict, baseline_auprc
 from embracenet_tpu_torch.visual.report import (DEFAULT_MODELS,
                                                 select_augmented_models)
@@ -57,9 +58,11 @@ def run_sweep(pipelines: dict | None = None,
     ``pipelines``: {task: Pipeline} from :func:`preprocess_all`; or supply
     ``data_fn(cell, task) -> data dict`` for synthetic/preloaded data.
 
-    ``mesh``: see :func:`api.resolve_mesh`; only the single-device path
-    runs.  Every fit runs on the card unless ``device`` says otherwise
-    (``"cpu"``).
+    ``mesh``: a ``parallel.mesh.Mesh``, a ``MeshConfig``, ``"auto"`` or None
+    (:func:`api.resolve_mesh`): every rank of the world runs the sweep
+    alike, sharding each CV over the mesh, and rank 0 alone writes results,
+    studies and checkpoints.  Every fit runs on the card unless ``device``
+    says otherwise (``"cpu"``).
 
     Mirrors the notebook policy: on tasks where the cell line is imbalanced
     (pos/neg < threshold) the FFNN is trained with both rebalancers (smote +
@@ -67,8 +70,9 @@ def run_sweep(pipelines: dict | None = None,
     (`models/utils/utils.py:302-353`); EmbraceNet additionally runs the
     ``augmentation=True`` variant when ``models`` names it.
     """
-    results = ResultsDict(results_path)
     mesh = api.resolve_mesh(mesh, device)
+    results = ResultsDict(results_path)
+    results.data = broadcast(mesh, results.data)    # rank 0's file
     t_start = time.time()
     for cell in cells:
         for task in tasks:
@@ -102,7 +106,7 @@ def run_sweep(pipelines: dict | None = None,
                         model_label=name if name != family else None,
                         device=device)
                     results.update(cell, task, name, scores)
-                    results.save()
+                    results.save(mesh=mesh)
                 if len(variants) == 2:
                     try:
                         # Mutates results.data in place: copies the winner
@@ -111,8 +115,8 @@ def run_sweep(pipelines: dict | None = None,
                         select_augmented_models(
                             results.data, cell, task,
                             checkpoint_dir=checkpoint_dir,
-                            n_folds=cv_cfg.n_folds)
-                        results.save()
+                            n_folds=cv_cfg.n_folds, mesh=mesh)
+                        results.save(mesh=mesh)
                     except ValueError:
                         pass
     return results

@@ -16,6 +16,7 @@ import os
 import numpy as np
 
 from embracenet_tpu_torch.convert import tree_to_numpy
+from embracenet_tpu_torch.parallel.mesh import barrier, is_writer
 
 _SEP = "|"
 _LIST_MARK = "#"
@@ -56,18 +57,22 @@ def _unflatten(flat: dict):
     return restore_lists(tree)
 
 
-def save_checkpoint(path: str, trees: dict, meta: dict | None = None):
+def save_checkpoint(path: str, trees: dict, meta: dict | None = None,
+                    mesh=None):
     """``trees``: name -> tree of tensors or arrays (e.g. {"params": ...,
-    "bn_state": ...})."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    flat = {}
-    for name, tree in trees.items():
-        for k, v in _flatten(tree_to_numpy(tree)).items():
-            flat[f"{name}{_SEP}{k}" if k else name] = v
-    np.savez(path if path.endswith(".npz") else path + ".npz",
-             __meta__=np.frombuffer(
-                 json.dumps(meta or {}, default=float).encode(), np.uint8),
-             **flat)
+    "bn_state": ...}).  Under a ``mesh`` rank 0 alone writes, and every
+    rank waits until it has."""
+    if is_writer(mesh):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        flat = {}
+        for name, tree in trees.items():
+            for k, v in _flatten(tree_to_numpy(tree)).items():
+                flat[f"{name}{_SEP}{k}" if k else name] = v
+        np.savez(path if path.endswith(".npz") else path + ".npz",
+                 __meta__=np.frombuffer(
+                     json.dumps(meta or {}, default=float).encode(), np.uint8),
+                 **flat)
+    barrier(mesh)
 
 
 def load_checkpoint(path: str):

@@ -32,6 +32,12 @@ padding (``n_rep`` replicas of the retrain, trial 0 kept) but not the JAX
 package's ``shape_targets``, which only make XLA reuse compiled programs;
 eager PyTorch compiles none.  Everything runs on the card unless
 ``device`` says otherwise.
+
+Under a mesh (``mesh=``, any form ``parallel.mesh.resolve_mesh`` takes) the
+fold-fused path is the default (``CVConfig.fuse_folds=None``), as in the
+JAX package: its population is the widest the trial axes can shard.  Every
+rank runs the same CV and returns the same scores; rank 0 alone writes
+studies and checkpoints, and a resumed fold is read from rank 0's files.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from embracenet_tpu_torch.data import sampling
 from embracenet_tpu_torch.hpo import space as space_mod
 from embracenet_tpu_torch.hpo.search import (concat_fold_views, run_search,
                                              run_search_fused)
+from embracenet_tpu_torch.parallel.mesh import broadcast, is_writer, resolve_mesh
 from embracenet_tpu_torch.training import engine
 from embracenet_tpu_torch.training.batching import (balanced_plan, eval_plan,
                                                     shift_plan)
@@ -154,9 +161,18 @@ class KfoldCV:
         return (rebalanced(tr_idx), view_slice(val_idx),
                 rebalanced(train_index), view_slice(test_index))
 
-    def _resume(self, fold_ck, fold, verbose):
-        """A finished fold's scores from its checkpoint -> (test, train)."""
-        _, meta = load_checkpoint(fold_ck)
+    @staticmethod
+    def _finished(fold_ck, resume, mesh):
+        """The meta of a finished fold's checkpoint (rank 0's file, on
+        every rank), or None where the fold is to run."""
+        meta = None
+        if resume and is_writer(mesh) and os.path.exists(fold_ck + ".npz"):
+            meta = load_checkpoint(fold_ck)[1]
+        return broadcast(mesh, meta)
+
+    def _resume(self, meta, fold, verbose):
+        """A finished fold's scores from its checkpoint's meta -> (test,
+        train)."""
         self.scores_dict[f"iteration_n_{fold}"] = meta["scores"]
         self.best_params[fold] = meta["best_params"]
         final_test = meta["scores"]["AUPRC_test"][-1]
@@ -184,12 +200,10 @@ class KfoldCV:
         (views required by ``model`` must be present).
         Returns the scores_dict.
 
-        ``mesh`` is not ported (ROADMAP.md Queue 1 item 8): anything but
-        None raises.  ``device``: where every fit runs (None = the card)."""
-        if mesh is not None:
-            raise NotImplementedError("KfoldCV(mesh=...) is not ported to "
-                                      "PyTorch yet: ROADMAP.md Queue 1 item 8 "
-                                      "(multi-device)")
+        ``mesh``: a ``parallel.mesh.Mesh``, ``MeshConfig``, ``"auto"`` or
+        None; every rank of it calls with the same arguments.  ``device``:
+        where every fit runs (None = the card, or the mesh's device)."""
+        mesh = resolve_mesh(mesh, device)
         views = _views_for_model(model)
         for v in views:
             if v not in data:
@@ -225,7 +239,7 @@ class KfoldCV:
                 storage=storage, checkpoint_dir=checkpoint_dir,
                 test_model_path=test_model_path, random_state=random_state,
                 resume=resume, verbose=verbose, cell_line=cell_line,
-                task=task, device=device)
+                task=task, device=device, mesh=mesh)
 
         for i, (train_index, test_index) in enumerate(folds):
             fold = i + 1
@@ -237,8 +251,9 @@ class KfoldCV:
             # fold reloads its scores
             fold_ck = os.path.join(checkpoint_dir,
                                    f"{study_name}_fold{fold}_result")
-            if resume and os.path.exists(fold_ck + ".npz"):
-                final_test, final_train = self._resume(fold_ck, fold, verbose)
+            meta = self._finished(fold_ck, resume, mesh)
+            if meta is not None:
+                final_test, final_train = self._resume(meta, fold, verbose)
                 self.scores_dict["final_test_AUPRC_scores"].append(final_test)
                 self.scores_dict["final_train_AUPRC_scores"].append(final_train)
                 avg_score.append(final_test)
@@ -253,7 +268,8 @@ class KfoldCV:
                 study_name=f"{study_name}_{fold}", storage=storage,
                 sampler=cv_cfg.sampler, n_trials=cv_cfg.n_trials,
                 train_cfg=train_cfg, checkpoint_dir=checkpoint_dir,
-                seed=random_state + fold, verbose=verbose, device=device)
+                seed=random_state + fold, verbose=verbose, device=device,
+                mesh=mesh)
 
             hp = space_mod.params_to_hp(model, search.best_params)
             opt = space_mod.optimizer_hp(search.best_params)
@@ -275,7 +291,7 @@ class KfoldCV:
                                 trainval_d, test_d, train_cfg,
                                 seed=random_state + 200 + fold,
                                 init_params=init_params, init_bn_state=init_bn,
-                                verbose=verbose, device=device)
+                                verbose=verbose, device=device, mesh=mesh)
 
             fold_scores = {
                 "AUPRC_train": result.auprc_train[0],
@@ -291,7 +307,7 @@ class KfoldCV:
                             meta={"scores": fold_scores,
                                   "best_params": search.best_params,
                                   "model": model, "model_params":
-                                  search.best_params})
+                                  search.best_params}, mesh=mesh)
             final_test = result.final_test_auprc[0]
             final_train = result.final_train_auprc[0]
             self.scores_dict["final_test_AUPRC_scores"].append(final_test)
@@ -306,7 +322,7 @@ class KfoldCV:
                     {"params": trial0_tree[0], "bn_state": trial0_tree[1]},
                     meta={"model_params": search.best_params,
                           "model": model, "cell_line": cell_line,
-                          "task": task, "fold": fold})
+                          "task": task, "fold": fold}, mesh=mesh)
 
         avg = float(np.round(sum(avg_score) / cv_cfg.n_folds, 5))
         self.scores_dict["average_CV_AUPRC"] = avg
@@ -317,7 +333,7 @@ class KfoldCV:
     def _call_fused(self, data, model, spec, views, folds, y, *,
                     cv_cfg, train_cfg, study_name, storage, checkpoint_dir,
                     test_model_path, random_state, resume, verbose,
-                    cell_line, task, device=None):
+                    cell_line, task, device=None, mesh=None):
         """All folds' HPO searches, then all folds' retrains, as two fused
         populations (engine per-trial plans over fold-concatenated data).
         Scores, study accounting, checkpoints and the reference filename
@@ -332,8 +348,9 @@ class KfoldCV:
             fold = i + 1
             fold_ck = os.path.join(checkpoint_dir,
                                    f"{study_name}_fold{fold}_result")
-            if resume and os.path.exists(fold_ck + ".npz"):
-                resumed[fold] = self._resume(fold_ck, fold, verbose)
+            meta = self._finished(fold_ck, resume, mesh)
+            if meta is not None:
+                resumed[fold] = self._resume(meta, fold, verbose)
                 continue
             pending.append((fold,) + self._split(
                 data, views, y, train_index, test_index, cv_cfg, train_cfg,
@@ -348,7 +365,7 @@ class KfoldCV:
                 seeds=[random_state + p[0] for p in pending],
                 storage=storage, sampler=cv_cfg.sampler, n_trials=n_trials,
                 train_cfg=train_cfg, checkpoint_dir=checkpoint_dir,
-                verbose=verbose, device=device)
+                verbose=verbose, device=device, mesh=mesh)
 
             # ---- fused retrain: one population over all pending folds ----
             n_rep = (n_trials if cv_cfg.share_programs else 1)
@@ -395,7 +412,8 @@ class KfoldCV:
                 init_bn_state=engine.stack_trials([t[1] for t in init_trees]),
                 verbose=verbose, train_plans=train_plans,
                 eval_plans=eval_plans,
-                run_seeds=np.asarray(run_seeds, np.uint32), device=device)
+                run_seeds=np.asarray(run_seeds, np.uint32), device=device,
+                mesh=mesh)
 
             trees = tree_to_numpy((result.params, result.bn_state))
             for j, (fold, *_rest) in enumerate(pending):
@@ -416,7 +434,7 @@ class KfoldCV:
                                 meta={"scores": fold_scores,
                                       "best_params": search.best_params,
                                       "model": model, "model_params":
-                                      search.best_params})
+                                      search.best_params}, mesh=mesh)
                 fold_final[fold] = (result.final_test_auprc[base],
                                     result.final_train_auprc[base],
                                     trial0_tree, search.best_params)
@@ -447,7 +465,7 @@ class KfoldCV:
                     {"params": trial0_tree[0], "bn_state": trial0_tree[1]},
                     meta={"model_params": best_params,
                           "model": model, "cell_line": cell_line,
-                          "task": task, "fold": fold})
+                          "task": task, "fold": fold}, mesh=mesh)
 
         avg = float(np.round(sum(avg_score) / cv_cfg.n_folds, 5))
         self.scores_dict["average_CV_AUPRC"] = avg

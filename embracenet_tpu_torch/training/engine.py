@@ -32,6 +32,16 @@ Random streams: the JAX PRNG keys become per-trial integer seeds
 for its parameter init, a run seed a numpy generator that gives every batch
 step its forward seed.  Same distributions as the JAX package, different
 streams.
+
+Under a mesh (``parallel/mesh.py``) each rank trains its block of the
+population (the trial axes) on its columns of every batch (the 'data'
+axis).  The population is padded to the trial axes with copies of its last
+trial; every rank of a data group takes the same step seed, every per-row
+draw is taken by global row and every reduction over the batch is a sum
+over the data group (``parallel.mesh.BatchShard``), so a sharded fit draws
+and sums what the meshless fit does.  The host reads the per-trial metrics
+of all blocks at each chunk, so early exit, pruning and callbacks decide
+alike on every rank, and every rank returns the whole population.
 """
 
 from __future__ import annotations
@@ -49,6 +59,10 @@ from embracenet_tpu_torch.convert import (tree_leaves, tree_map, tree_to_torch,
                                           tree_unflatten)
 from embracenet_tpu_torch.models.layers import exact_float32
 from embracenet_tpu_torch.ops import losses, metrics, optim
+from embracenet_tpu_torch.parallel.mesh import (BatchShard, batch_sharding,
+                                                gather_trials, resolve_mesh,
+                                                shard_population,
+                                                trial_device_count)
 from embracenet_tpu_torch.training import slicing
 from embracenet_tpu_torch.training.batching import balanced_plan, eval_plan
 from embracenet_tpu_torch.training.modelspec import ModelSpec
@@ -185,10 +199,13 @@ def _pad_plan(plan, n_batches: int, width: int):
     return idx, mask
 
 
-def _stack_plans(ps, device):
-    """[P, nb, bw] plan tensors on the device (P = 1 for a shared plan)."""
+def _stack_plans(ps, device, n_data: int = 1):
+    """[P, nb, bw] plan tensors on the device (P = 1 for a shared plan);
+    ``bw`` covers every plan's width rounded up to a multiple of
+    ``n_data``, so each data shard's columns exist (masked past a plan's
+    own width)."""
     nb = max(p.idx.shape[0] for p in ps)
-    bw = max(p.idx.shape[1] for p in ps)
+    bw = max(-(-p.idx.shape[1] // n_data) * n_data for p in ps)
     padded = [_pad_plan(p, nb, bw) for p in ps]
     return (torch.as_tensor(np.stack([p[0] for p in padded]), device=device),
             torch.as_tensor(np.stack([p[1] for p in padded]), device=device))
@@ -215,21 +232,37 @@ def _write(stacked, t: int, new, upd):
     tree_map(one, stacked, new)
 
 
+def _sum_grads(shard, grads):
+    """The data group's sum of each gradient, in one all-reduce (float32;
+    a leaf without a gradient has none on any rank)."""
+    have = [g for g in grads if g is not None]
+    flat = shard.sum(torch.cat([g.reshape(-1).float() for g in have]))
+    sums = iter(s.view(g.shape).to(g.dtype) for s, g in
+                zip(flat.split([g.numel() for g in have]), have))
+    return [None if g is None else next(sums) for g in grads]
+
+
 def train_step(spec: ModelSpec, params, bn_state, opt_state, hp, opt_hp,
-               inputs, y, mask, seed: int, compute_dtype, statics):
+               inputs, y, mask, seed: int, compute_dtype, statics, shard=None):
     """One trial's batch step: forward, weighted CE, gradients through
     autograd (the fused kernel's through its Function), optimizer update.
     Returns ``(loss, logits, new_params, new_bn_state, new_opt_state)``;
-    the caller decides whether the new state is kept."""
+    the caller decides whether the new state is kept.  For a ``shard`` of
+    a data-sharded batch the loss is the whole batch's and the gradients
+    are summed over the data group before the update, so every rank of the
+    group updates alike."""
     leaves = [a.detach().requires_grad_(True) for a in tree_leaves(params)]
     live = tree_unflatten(params, leaves)
     # the backward pass too in full float32: cuDNN would take its
     # convolutions' and LSTM's gradients in TF32 outside this context
     with exact_float32():
         logits, new_bn = spec.apply(live, bn_state, hp, inputs, True, seed,
-                                    mask, compute_dtype, statics)
-        loss = losses.weighted_cross_entropy(logits, y, mask)
+                                    mask, compute_dtype, statics, shard)
+        loss = losses.weighted_cross_entropy(logits, y, mask, shard=shard)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    if shard is not None:
+        grads = _sum_grads(shard, grads)
+        loss = shard.sum(loss.detach())
     new_params, new_opt = optim.apply_update(
         params, tree_unflatten(params, grads), opt_state, opt_hp["optimizer"],
         opt_hp["lr"], opt_hp["weight_decay"])
@@ -237,10 +270,28 @@ def train_step(spec: ModelSpec, params, bn_state, opt_state, hp, opt_hp,
             tree_map(torch.Tensor.detach, new_bn), new_opt)
 
 
-def _auprc_of(cfg, logits, y, mask):
+def _auprc_of(cfg, logits, y, mask, shard=None):
     if cfg.auprc_on_probabilities:
-        return metrics.auprc_prob(torch.softmax(logits, -1)[:, 1], y, mask)
-    return metrics.auprc_argmax(logits, y, mask)
+        return metrics.auprc_prob(torch.softmax(logits, -1)[:, 1], y, mask,
+                                  shard)
+    return metrics.auprc_argmax(logits, y, mask, shard)
+
+
+def _pad_population(n_pad: int, lists, trees):
+    """Each per-trial list and each tree stacked over trials (None stays
+    None) with ``n_pad`` copies of its last trial appended."""
+    lists = [None if v is None else list(v) + [v[-1]] * n_pad for v in lists]
+    trees = [None if t is None else tree_map(
+        lambda a: torch.cat([a, a[-1:].expand(n_pad, *a.shape[1:])]),
+        tree_to_torch(t, "cpu")) for t in trees]
+    return lists, trees
+
+
+def _gather_population(mesh, trees, n_real: int, device):
+    """Every trial block's trees (stacked over its trials), concatenated in
+    trial order on every rank and cut to the real population."""
+    blocks = gather_trials(mesh, tree_map(lambda a: a.detach().cpu(), trees))
+    return tree_map(lambda *xs: torch.cat(xs)[:n_real].to(device), *blocks)
 
 
 def fit(spec: ModelSpec,
@@ -283,28 +334,48 @@ def fit(spec: ModelSpec,
     epochs they trained.
 
     Runs on the card unless ``device`` says otherwise (``"cpu"``).
-    ``mesh`` is not ported: ROADMAP.md Queue 1 item 8.
+
+    ``mesh``: a ``parallel.mesh.Mesh``, a ``MeshConfig``, ``"auto"`` or
+    None (``parallel.mesh.resolve_mesh``).  Every rank of the mesh calls
+    fit with the same arguments; it trains on the mesh's device, and its
+    result holds the whole real population on every rank.
     """
-    if mesh is not None:
-        raise NotImplementedError("fit(mesh=...) is not ported to PyTorch "
-                                  "yet: ROADMAP.md Queue 1 item 8 "
-                                  "(multi-device)")
-    dev = resolve_device(device)
-    n_trials = len(hp_list)
+    mesh = resolve_mesh(mesh, device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    n_real = len(hp_list)
     if train_plans is not None and cfg.eval_reshuffle:
         raise ValueError("per-trial plans and eval_reshuffle are exclusive "
                          "(use the sequential per-fold path for strict "
                          "reference eval-shuffle parity)")
     if (train_plans is None) != (eval_plans is None):
         raise ValueError("train_plans and eval_plans go together")
-    s_init, s_run = seed_streams(cfg.seed if seed is None else seed, n_trials)
+    if train_plans is not None and (len(train_plans) != n_real
+                                    or len(eval_plans) != n_real):
+        raise ValueError("per-trial plans must match the population size")
+    s_init, s_run = seed_streams(cfg.seed if seed is None else seed, n_real)
     init_seeds = s_init if init_seeds is None else np.asarray(init_seeds)
     run_seeds = s_run if run_seeds is None else np.asarray(run_seeds)
+    n_data = 1
+    if mesh is not None:
+        # pad the population to the trial axes with copies of its last
+        # trial (same statics, so the real trials train as without it);
+        # results are cut back to the real population
+        pad = (-n_real) % trial_device_count(mesh)
+        (hp_list, opt_list, init_seeds, run_seeds, train_plans, eval_plans), \
+            (init_params, init_bn_state) = _pad_population(
+                pad, (hp_list, opt_list, init_seeds, run_seeds, train_plans,
+                      eval_plans), (init_params, init_bn_state))
+        n_data = mesh.shape["data"]
+    n_trials = len(hp_list)            # the padded population
     compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
     state_dtype = torch.bfloat16 if cfg.optim_dtype == "bfloat16" else None
     use_master = cfg.param_dtype == "bfloat16"
     statics = _resolve_statics(spec, hp_list, cfg)
     shrunk = slicing.has_width_statics(statics)
+    # this rank's trials (all of them without a mesh)
+    hps, opts, my_init_seeds, my_run_seeds = shard_population(
+        mesh, hp_list, opt_list, init_seeds, run_seeds)
+    n_local = len(hps)
 
     # population init: trial by trial from its own generator, on the host
     # (the same numbers on either device), then one copy to the device; a
@@ -317,11 +388,13 @@ def fit(spec: ModelSpec,
                 return spec.init(gen, hp)
             return spec.init_from_fans(gen, spec.fan_ins(hp))
 
-        inits = [init_one(s, hp) for s, hp in zip(init_seeds, hp_list)]
+        inits = [init_one(s, hp) for s, hp in zip(my_init_seeds, hps)]
         params = stack_trials([i[0] for i in inits])
         bn_state = stack_trials([i[1] for i in inits])
     else:
-        params, bn_state = init_params, init_bn_state
+        params, bn_state = shard_population(
+            mesh, tree_to_torch(init_params, "cpu"),
+            tree_to_torch(init_bn_state or {}, "cpu"))
     params = tree_to_torch(params, "cpu")
     bn_state = tree_to_torch(bn_state or {}, "cpu")
     if shrunk:
@@ -329,12 +402,11 @@ def fit(spec: ModelSpec,
     params = tree_map(lambda a: a.to(dev, copy=True).contiguous(), params)
     bn_state = tree_map(lambda a: a.to(dev, copy=True).contiguous(), bn_state)
     opt_state = optim.init_state(params, state_dtype, use_master,
-                                 lead=(n_trials,))
+                                 lead=(n_local,))
     if use_master:
         params = tree_map(lambda a: a.to(torch.bfloat16), params)
 
-    opt_hp = {k: torch.as_tensor(np.asarray([o[k] for o in opt_list]),
-                                 device=dev)
+    opt_hp = {k: torch.as_tensor(np.asarray([o[k] for o in opts]), device=dev)
               for k in ("optimizer", "lr", "weight_decay")}
     opt_hp["lr"] = opt_hp["lr"].float()
     opt_hp["weight_decay"] = opt_hp["weight_decay"].float()
@@ -343,23 +415,24 @@ def fit(spec: ModelSpec,
     test_data = _device_data(data_test, spec, dev)
     n_test = len(np.asarray(data_test["y"]))
     if train_plans is None:
-        plans = [balanced_plan(np.asarray(data_train["y"]), cfg.batch_size,
-                               seed=123)]
-        tplans = [eval_plan(n_test, cfg.batch_size * 2, seed=123)]
+        all_plans = [balanced_plan(np.asarray(data_train["y"]), cfg.batch_size,
+                                   seed=123)]
+        all_tplans = [eval_plan(n_test, cfg.batch_size * 2, seed=123)]
+        plans, tplans = all_plans, all_tplans
     else:
-        if len(train_plans) != n_trials or len(eval_plans) != n_trials:
-            raise ValueError("per-trial plans must match the population size")
-        plans, tplans = list(train_plans), list(eval_plans)
+        all_plans, all_tplans = list(train_plans), list(eval_plans)
+        plans, tplans = shard_population(mesh, all_plans, all_tplans)
 
     def _div_vec(ps):
         d = np.asarray([p.metric_divisor for p in ps], np.float32)
         return np.broadcast_to(d, (n_trials,)).copy() if len(ps) == 1 else d
 
-    train_div = _div_vec(plans)
-    eval_div = _div_vec(tplans)
-    eval_div_dev = torch.as_tensor(eval_div, device=dev)
+    train_div = _div_vec(all_plans)    # [n_trials], read on the host
+    eval_div = _div_vec(all_tplans)
+    eval_div_dev = torch.as_tensor(shard_population(mesh, eval_div)[0],
+                                   device=dev)
 
-    plan_idx, plan_mask = _stack_plans(plans, dev)
+    plan_idx, plan_mask = _stack_plans(plans, dev, n_data)
     # each plan's own [nb, bw]: a trial of a padded stack (fold-fused plans)
     # walks only its own batches at its own width, so its steps, random
     # draws and results are those of the fit that had its plan alone
@@ -369,42 +442,53 @@ def fit(spec: ModelSpec,
         # the reference reshuffles its test loader every epoch
         # (training_models.py:477); every epoch's plan goes to the device
         # now, so no chunk waits for a copy
-        eval_plans_by_epoch = [_stack_plans([eval_plan(n_test, cfg.batch_size * 2,
-                                                       seed=123 + ep)], dev)
-                               for ep in range(cfg.num_epochs)]
+        eval_plans_by_epoch = [
+            _stack_plans([eval_plan(n_test, cfg.batch_size * 2, seed=123 + ep)],
+                         dev, n_data)
+            for ep in range(cfg.num_epochs)]
     else:
-        eval_plans_by_epoch = [_stack_plans(tplans, dev)] * cfg.num_epochs
+        eval_plans_by_epoch = [_stack_plans(tplans, dev, n_data)] * cfg.num_epochs
     plan_has_rows = plan_mask.sum(-1) > 0                    # [P, nb]
 
-    run_rngs = [np.random.default_rng(int(s)) for s in run_seeds]
-    es = (torch.full((n_trials,), -float("inf"), device=dev),   # best score
-          torch.zeros(n_trials, dtype=torch.int32, device=dev),  # counter
-          torch.zeros(n_trials, dtype=torch.bool, device=dev),   # stopped
-          torch.zeros(n_trials, dtype=torch.int32, device=dev))  # epochs run
+    def cols(bw):
+        """This rank's columns of a plan row of width ``bw`` (the 'data'
+        axis' share of it, padded to its multiple) and their shard."""
+        if n_data == 1:
+            return slice(0, bw), None
+        c = batch_sharding(mesh, bw)
+        return c, BatchShard(c.start, bw, n_data, mesh.group("data"))
+
+    run_rngs = [np.random.default_rng(int(s)) for s in my_run_seeds]
+    es = (torch.full((n_local,), -float("inf"), device=dev),   # best score
+          torch.zeros(n_local, dtype=torch.int32, device=dev),  # counter
+          torch.zeros(n_local, dtype=torch.bool, device=dev),   # stopped
+          torch.zeros(n_local, dtype=torch.int32, device=dev))  # epochs run
 
     def run_epoch(active, t_idx, t_mask):
         """Train every trial over the plan, then evaluate it: per-trial
         device tensors (loss sum, train AUPRC sum, test AUPRC sum, f1)."""
-        loss_sum = [[] for _ in range(n_trials)]
-        auprc_sum = [[] for _ in range(n_trials)]
+        loss_sum = [[] for _ in range(n_local)]
+        auprc_sum = [[] for _ in range(n_local)]
         shared_plan = plan_idx.shape[0] == 1
         for b in range(plan_idx.shape[1]):
             if shared_plan:
-                batch = _gather(train_data, plan_idx[0, b], spec)
-            for t in range(n_trials):
+                c, shard = cols(train_dims[0][1])
+                batch = _gather(train_data, plan_idx[0, b, c], spec)
+            for t in range(n_local):
                 p_ = 0 if shared_plan else t
                 nb, bw = train_dims[p_]
                 if b >= nb:
                     continue          # padding of a shorter plan
+                c, shard = cols(bw)
                 inputs, y = (batch if shared_plan
-                             else _gather(train_data, plan_idx[t, b, :bw], spec))
-                mask = plan_mask[p_, b, :bw]
+                             else _gather(train_data, plan_idx[t, b, c], spec))
+                mask = plan_mask[p_, b, c]
                 seed_tb = int(run_rngs[t].integers(0, 2 ** 31 - 1))
                 loss, logits, new_p, new_bn, new_opt = train_step(
                     spec, _trial(params, t), _trial(bn_state, t),
-                    _opt_trial(opt_state, t), hp_list[t],
-                    {k: v[t] for k, v in opt_hp.items()},
-                    inputs, y, mask, seed_tb, compute_dtype, statics)
+                    _opt_trial(opt_state, t), hps[t],
+                    {k_: v[t] for k_, v in opt_hp.items()},
+                    inputs, y, mask, seed_tb, compute_dtype, statics, shard)
                 # freeze stopped trials and skip fully masked dummy batches
                 upd = active[t] & plan_has_rows[p_, b]
                 with torch.no_grad():
@@ -412,23 +496,25 @@ def fit(spec: ModelSpec,
                     _write(bn_state, t, new_bn, upd)
                     _write(opt_state, t, new_opt, upd)
                 loss_sum[t].append(loss)
-                auprc_sum[t].append(_auprc_of(cfg, logits, y, mask))
+                auprc_sum[t].append(_auprc_of(cfg, logits, y, mask, shard))
         tr_loss = torch.stack([torch.stack(v).sum() for v in loss_sum])
         tr_auprc = torch.stack([torch.stack(v).sum() for v in auprc_sum])
         te_auprc, te_f1 = [], []
         with torch.no_grad():
-            for t in range(n_trials):
+            for t in range(n_local):
                 p_ = 0 if t_idx.shape[0] == 1 else t
                 nb, bw = eval_dims[p_]
+                c, shard = cols(bw)
                 a_sum, f_sum = [], []
                 for b in range(nb):
-                    inputs, y = _gather(test_data, t_idx[p_, b, :bw], spec)
-                    mask = t_mask[p_, b, :bw]
+                    inputs, y = _gather(test_data, t_idx[p_, b, c], spec)
+                    mask = t_mask[p_, b, c]
                     logits, _ = spec.apply(_trial(params, t), _trial(bn_state, t),
-                                           hp_list[t], inputs, False, 0, mask,
-                                           compute_dtype, statics)
-                    a_sum.append(_auprc_of(cfg, logits, y, mask))
-                    f_sum.append(metrics.f1_precision_recall(logits, y, mask))
+                                           hps[t], inputs, False, 0, mask,
+                                           compute_dtype, statics, shard)
+                    a_sum.append(_auprc_of(cfg, logits, y, mask, shard))
+                    f_sum.append(metrics.f1_precision_recall(logits, y, mask,
+                                                             shard))
                 te_auprc.append(torch.stack(a_sum).sum())
                 te_f1.append(torch.stack(f_sum).sum(0))
         return tr_loss, tr_auprc, torch.stack(te_auprc), torch.stack(te_f1)
@@ -446,33 +532,39 @@ def fit(spec: ModelSpec,
             outs.append((tr_loss, tr_auprc, te_auprc, te_f1, es[2]))
         return tuple(torch.stack(x, dim=1) for x in zip(*outs))   # [T, n_ep, ...]
 
-    pruned = [False] * n_trials
-    hist_train = [[] for _ in range(n_trials)]
-    hist_test = [[] for _ in range(n_trials)]
-    hist_f1 = [[] for _ in range(n_trials)]
-    hist_loss = [[] for _ in range(n_trials)]
+    # host bookkeeping covers the real population; padding trials train
+    # but are never reported or returned
+    pruned = [False] * n_real
+    hist_train = [[] for _ in range(n_real)]
+    hist_test = [[] for _ in range(n_real)]
+    hist_f1 = [[] for _ in range(n_real)]
+    hist_loss = [[] for _ in range(n_real)]
     if chunk_callback is not None:
-        _wpt = ([float(p.mask.sum()) for p in plans] if len(plans) > 1
-                else [float(plans[0].mask.sum())] * n_trials)
-    done = [False] * n_trials
+        _wpt = ([float(p.mask.sum()) for p in all_plans] if len(all_plans) > 1
+                else [float(all_plans[0].mask.sum())] * n_trials)
+    done = [False] * n_real
     t_state = {"prev_fetch": time.perf_counter()}
 
     def _process(rec):
-        """Fetch one chunk's metrics (the only wait for the device) and run
-        the host bookkeeping: history, early exit, pruning, callback."""
+        """Fetch one chunk's metrics (the only wait for the device; under a
+        mesh, every trial block's) and run the host bookkeeping: history,
+        early exit, pruning, callback."""
         c_idx, n_ep, ep_lo, outs, live0, t_disp = rec
-        loss_sum, tr_sum, te_sum, f1_sum, stopped_seq = (
-            o.cpu().numpy() for o in outs)
+        arrays = [o.cpu().numpy() for o in outs]
+        if mesh is not None:
+            blocks = gather_trials(mesh, arrays)
+            arrays = [np.concatenate(parts) for parts in zip(*blocks)]
+        loss_sum, tr_sum, te_sum, f1_sum, stopped_seq = arrays
         now = time.perf_counter()
         if chunk_callback is not None:
             # a trial stopping at in-chunk epoch e trained e + 1 epochs
             ss = stopped_seq.astype(bool)
             ep_tr = np.where(ss.any(axis=1), ss.argmax(axis=1) + 1, n_ep)
-            prev_stopped = t_state.get("stopped", [False] * n_trials)
+            prev_stopped = t_state.get("stopped", [False] * n_real)
             real_windows = sum(w * int(e) for w, e, live, sp
                                in zip(_wpt, ep_tr, live0, prev_stopped)
                                if live and not sp)
-            t_state["stopped"] = ss[:, -1].tolist()
+            t_state["stopped"] = ss[:n_real, -1].tolist()
             chunk_callback(c_idx, n_ep,
                            now - max(t_disp, t_state["prev_fetch"]),
                            real_windows / n_ep)
@@ -483,7 +575,7 @@ def fit(spec: ModelSpec,
         f1 = f1_sum / eval_div[:, None, None]         # [T, n_ep, 3]
         for e in range(n_ep):
             epoch = ep_lo + e + 1
-            for t in range(n_trials):
+            for t in range(n_real):
                 if done[t]:
                     continue
                 # history includes the stop epoch (the reference records
@@ -500,8 +592,8 @@ def fit(spec: ModelSpec,
                     done[t] = True
         if verbose:
             print(f"epochs {ep_lo + 1}-{ep_lo + n_ep}: "
-                  f"test AUPRC {auprc_te[:, -1].round(4)} "
-                  f"done={sum(done)}/{n_trials}")
+                  f"test AUPRC {auprc_te[:n_real, -1].round(4)} "
+                  f"done={sum(done)}/{n_real}")
 
     epochs_done, chunk_idx, pending = 0, 0, None
     while epochs_done < cfg.num_epochs and not all(done):
@@ -529,6 +621,9 @@ def fit(spec: ModelSpec,
         params = opt_state["master"]
     if shrunk:
         params, bn_state = slicing.grow(spec.name, params, bn_state, statics)
+    if mesh is not None:
+        params, bn_state = _gather_population(mesh, (params, bn_state),
+                                              n_real, dev)
     return FitResult(params=params, bn_state=bn_state,
                      auprc_train=hist_train, auprc_test=hist_test,
                      f1_precision_recall=hist_f1,

@@ -30,7 +30,8 @@ class ModelSpec:
     inputs: tuple          # subset of ("ffnn", "cnn")
     init: Callable         # (generator, hp_concrete) -> (params, bn_state)
     apply: Callable        # (params, bn_state, hp, inputs, train, seed,
-    #                         row_mask, compute_dtype, statics) -> (logits, bn)
+    #                         row_mask, compute_dtype, statics, shard)
+    #                         -> (logits, bn); shard: a BatchShard or None
     statics: Callable = None   # hp_list -> dict of static shape knobs
     vmappable: bool = True     # False: shapes vary per trial; HPO fits
     #                            each architecture as its own population
@@ -96,11 +97,12 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
             return ffnn.init(generator, hp, in_features_ffnn), {}
 
         def apply(params, bn_state, hp, inputs, train, seed, row_mask,
-                  compute_dtype, statics=None):
+                  compute_dtype, statics=None, shard=None):
             gen = torch.Generator(inputs["ffnn"].device).manual_seed(int(seed))
             logits = ffnn.apply(params, hp, inputs["ffnn"], train=train,
                                 generator=gen, compute_dtype=compute_dtype,
-                                max_width=(statics or {}).get("ffnn_max_width"))
+                                max_width=(statics or {}).get("ffnn_max_width"),
+                                shard=shard)
             return logits, bn_state
 
         return ModelSpec(model, ("ffnn",), init, apply,
@@ -111,7 +113,7 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
 
     if model == "CNN":
         def apply(params, bn_state, hp, inputs, train, seed, row_mask,
-                  compute_dtype, statics=None):
+                  compute_dtype, statics=None, shard=None):
             x = _seq_input(inputs, compute_dtype)
             gen = torch.Generator(x.device).manual_seed(int(seed))
             st = statics or {}
@@ -119,7 +121,8 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
                              row_mask=row_mask, compute_dtype=compute_dtype,
                              max_depth=st.get("cnn_max_depth"),
                              max_channels=st.get("cnn_max_channels"),
-                             max_kernels=st.get("cnn_max_kernels"))
+                             max_kernels=st.get("cnn_max_kernels"),
+                             shard=shard)
 
         return ModelSpec(model, ("cnn",), cnn.init, apply,
                          lambda hps: _cnn_statics(hps, key=None),
@@ -130,7 +133,7 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
             return embracenet.init(generator, hp, in_features_ffnn)
 
         def apply(params, bn_state, hp, inputs, train, seed, row_mask,
-                  compute_dtype, statics=None):
+                  compute_dtype, statics=None, shard=None):
             x = _seq_input(inputs, compute_dtype)
             st = statics or {}
             return embracenet.apply(params, bn_state, hp, inputs["ffnn"], x,
@@ -142,7 +145,8 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
                                     ffnn_max_width=st.get("ffnn_max_width"),
                                     embrace_max=st.get("embrace_max"),
                                     post_max=st.get("post_max"),
-                                    fused=st.get("fused_embrace", False))
+                                    fused=st.get("fused_embrace", False),
+                                    shard=shard)
 
         def statics(hps):
             out = _cnn_statics(hps)
@@ -161,7 +165,7 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
             return concatnet.init(generator, hp, in_features_ffnn)
 
         def apply(params, bn_state, hp, inputs, train, seed, row_mask,
-                  compute_dtype, statics=None):
+                  compute_dtype, statics=None, shard=None):
             x = _seq_input(inputs, compute_dtype)
             st = statics or {}
             return concatnet.apply(params, bn_state, hp, inputs["ffnn"], x,
@@ -171,7 +175,7 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
                                    cnn_max_channels=st.get("cnn_max_channels"),
                                    cnn_max_kernels=st.get("cnn_max_kernels"),
                                    ffnn_max_width=st.get("ffnn_max_width"),
-                                   post_max=st.get("post_max"))
+                                   post_max=st.get("post_max"), shard=shard)
 
         def statics(hps):
             out = _cnn_statics(hps)
@@ -200,11 +204,11 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
             return {"cnn_lstm_arch": archs.pop()}
 
         def apply(params, bn_state, hp, inputs, train, seed, row_mask,
-                  compute_dtype, statics=None):
+                  compute_dtype, statics=None, shard=None):
             x = _seq_input(inputs, compute_dtype)
             return cnn_lstm.apply(params, bn_state, hp, x, train=train,
                                   seed=seed, row_mask=row_mask,
-                                  compute_dtype=compute_dtype)
+                                  compute_dtype=compute_dtype, shard=shard)
 
         # no fan-ins: parameter shapes follow the trial, so engine.fit
         # inits each trial through ``init``

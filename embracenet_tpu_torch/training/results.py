@@ -51,10 +51,15 @@ class ResultsDict:
         node = self.data.get(cell_line, {}).get(task, {})
         return node if model is None else node.get(model)
 
-    def save(self, path: str | None = None):
-        path = path or self.path
-        with open(path, "w") as fh:
-            json.dump(self.data, fh, indent=1, default=float)
+    def save(self, path: str | None = None, mesh=None):
+        """Write the JSON; under a ``mesh`` rank 0 alone writes, and every
+        rank waits until it has."""
+        from embracenet_tpu_torch.parallel.mesh import barrier, is_writer
+
+        if is_writer(mesh):
+            with open(path or self.path, "w") as fh:
+                json.dump(self.data, fh, indent=1, default=float)
+        barrier(mesh)
 
     def save_pickle(self, path: str):
         """Reference-compatible pickle artifact."""

@@ -362,7 +362,7 @@ def select_augmented_models(results: dict, cell_line: str, task: str,
                             checkpoint_dir: str = "models",
                             n_folds: int = 3, model_name: str = "FFNN",
                             augm_1: str = "smote", augm_2: str = "double",
-                            fix_label_bug: bool = False) -> str:
+                            fix_label_bug: bool = False, mesh=None) -> str:
     """Pick the better FFNN rebalancing variant by the reference's *realized*
     rule (`models/utils/utils.py:302-353`, the second definition which
     shadows the first): ``augm_2`` wins iff the rank-sum p-value over the
@@ -375,11 +375,14 @@ def select_augmented_models(results: dict, cell_line: str, task: str,
     ``augm_2`` even when ``augm_1`` wins (``utils.py:342``, marked
     "#SISTEMA IN CV" — BASELINE.md confirms every pickle entry reads
     'double').  We reproduce that by default; ``fix_label_bug=True`` records
-    the actual winner instead.  Returns the winner name.
+    the actual winner instead.  Returns the winner name.  Under a
+    ``mesh`` rank 0 alone copies the checkpoints, and every rank waits
+    until it has.
     """
     import copy
     import shutil
 
+    from embracenet_tpu_torch.parallel.mesh import barrier, is_writer
     from embracenet_tpu_torch.training.cv import checkpoint_name
 
     node = results.get(cell_line, {}).get(task, {})
@@ -405,7 +408,7 @@ def select_augmented_models(results: dict, cell_line: str, task: str,
     # as checkpoint_name(cell, label, task, 0); promoting it creates the
     # canonical `{cell}_{model}_{task}_0_test_` file that api.predict /
     # evaluate and CompareModelsResult read.
-    for fold in range(0, n_folds + 1):
+    for fold in range(0, n_folds + 1 if is_writer(mesh) else 0):
         pairs = [
             (checkpoint_name(cell_line, f"{model_name}_{winner}", task,
                              fold) + ".npz",
@@ -418,4 +421,5 @@ def select_augmented_models(results: dict, cell_line: str, task: str,
             src = os.path.join(checkpoint_dir, src)
             if os.path.exists(src):
                 shutil.copy(src, os.path.join(checkpoint_dir, dst))
+    barrier(mesh)
     return winner

@@ -1,7 +1,8 @@
 """Tests of the port that need the CUDA card: the fused embrace kernels
 against their plain version, the fused op's gradient on the card against
 the CPU, serving on the card against serving on the CPU, a fit on the
-card and a study's search.  They skip without a card.  This file imports neither JAX nor the
+card and a study's search, a 1 x 1 NCCL mesh, and the kernels' row_base.
+They skip without a card.  This file imports neither JAX nor the
 JAX package, so the machine with the card runs it on its own:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -211,6 +212,50 @@ def test_fit_runs_on_the_card_through_the_kernel(cuda):
     assert res.epochs_run == [2]
     assert all(np.isfinite(res.loss_train[0] + res.auprc_test[0]))
     assert res.params["dock1_w"].device.type == "cuda"
+
+
+def test_a_one_by_one_nccl_mesh_fit_equals_the_meshless_fit(cuda):
+    """``init_distributed`` with NCCL in a world of one process, a 1 x 1
+    mesh, and ``fit(mesh=...)`` (its results gathered through NCCL) equal
+    to the meshless fit on the card, bit for bit."""
+    import torch.distributed as dist
+
+    from embracenet_tpu_torch.parallel.mesh import (free_port, init_distributed,
+                                                    make_mesh)
+
+    cfg = TrainConfig(num_epochs=2, epoch_chunk=1, batch_size=100)
+    plain = engine.fit(*_fit_inputs(), cfg)
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh(1, 1)
+        assert mesh.device.type == "cuda" and mesh.group("data") is not None
+        meshed = engine.fit(*_fit_inputs(), cfg, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    assert meshed.loss_train == plain.loss_train
+    assert meshed.auprc_test == plain.auprc_test
+    for k, v in plain.params.items():
+        if not isinstance(v, dict):
+            assert torch.equal(meshed.params[k], v), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["fused_embrace", "fused_embrace_fulle"])
+def test_row_base_draws_the_whole_launch_rows_on_the_card(cuda, kernel, dtype):
+    """Launches on rows [r, r + b) with ``row_base=r`` choose exactly as the
+    launch on the whole batch does for those rows; ``out`` within the
+    tolerance (another launch plan may sum K in another order)."""
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    fn = getattr(K, kernel)
+    x0, x1, w0, b0, w1, b1, e_mask = _inputs(cuda, dtype)
+    p0 = torch.linspace(0, 1, x0.shape[0], device=cuda)
+    out, choose = fn(x0, x1, w0, b0, w1, b1, p0, e_mask, 7)
+    for lo, hi in ((0, 50), (50, 100), (37, 100), (99, 100)):
+        o, c = fn(x0[lo:hi], x1[lo:hi], w0, b0, w1, b1, p0[lo:hi].contiguous(),
+                  e_mask, 7, row_base=lo)
+        assert torch.equal(c, choose[lo:hi])
+        torch.testing.assert_close(o, out[lo:hi], rtol=tol, atol=tol)
 
 
 def test_fit_never_waits_for_the_card_inside_a_chunk(cuda):

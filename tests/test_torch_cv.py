@@ -465,12 +465,20 @@ def test_train_runs_embracenet_cv_end_to_end_on_the_cpu(rng, tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(rng):
+    """Every mesh form runs (the multi-device path is ported); what is still
+    refused: a mesh wider than its world, a mesh of another type, and a
+    ``device`` that contradicts the mesh."""
+    from embracenet_tpu_torch.parallel.mesh import make_mesh
+
     data = _tabular(rng, 60)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(ValueError, match="init_distributed"):
         tapi.train("FFNN", "HEPG2", "t", data=data, mesh=MeshConfig(2, 1),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(TypeError, match="MeshConfig"):
         tcv.KfoldCV()(data, "FFNN", mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="contradicts"):
+        tcv.KfoldCV()(data, "FFNN", mesh=make_mesh(1, 1, device_type="cpu"),
+                      device="cuda")
     assert tapi.resolve_mesh("auto", "cpu") is None
     assert tapi.resolve_mesh(MeshConfig(), "cpu") is None
 

@@ -332,9 +332,12 @@ def test_fit_needs_the_card_unless_asked_for_the_cpu(rng, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         engine.fit(SPEC, [hp], [opt], train, test, _cfg())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        engine.fit(SPEC, [hp], [opt], train, test, _cfg(), mesh=object(),
-                   device="cpu")
+    # a mesh decides the device; one that contradicts ``device`` raises
+    from embracenet_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="contradicts"):
+        engine.fit(SPEC, [hp], [opt], train, test, _cfg(),
+                   mesh=make_mesh(1, 1, device_type="cpu"), device="cuda")
 
 
 def test_statics_keep_the_port_rule():

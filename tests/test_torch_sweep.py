@@ -232,7 +232,18 @@ def test_a_small_sweep_runs_end_to_end_on_the_cpu(tmp_path, rng):
         {CELL: data}, TASK, models=("FFNN", "EmbraceNetMultimodal"))
     (p,) = pairs[CELL][("FFNN", "EmbraceNetMultimodal")]["pvalues"]
     assert 0.0 <= p <= 1.0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tsweep.run_sweep(data_fn=lambda cell, task: data, cells=[CELL],
-                         tasks=[TASK], models=("FFNN",), mesh=object(),
-                         results_path=str(tmp_path / "r2.json"), device="cpu")
+    # a sweep over a 1 x 1 mesh (no process group) trains as the meshless
+    # one: the same FFNN entries
+    from embracenet_tpu_torch.parallel.mesh import make_mesh
+
+    meshed = tsweep.run_sweep(
+        data_fn=lambda cell, task: data, cells=[CELL], tasks=[TASK],
+        models=("FFNN",),
+        cv_cfg=CVConfig(n_folds=2, n_trials=1, sampler=ReplaySampler(draws[:4])),
+        train_cfg=TrainConfig(num_epochs=1, epoch_chunk=1, batch_size=40),
+        results_path=str(tmp_path / "r2.json"), storage=str(tmp_path / "s2.db"),
+        checkpoint_dir=str(tmp_path / "models2"), verbose=False,
+        mesh=make_mesh(1, 1, device_type="cpu"), device="cpu")
+    for name in ("FFNN_smote", "FFNN_double", "FFNN", "best_augmentation"):
+        assert meshed.data[CELL][TASK][name] == node[name]
+    assert TResults(str(tmp_path / "r2.json")).data == meshed.data

@@ -15,12 +15,16 @@ phase, or with ``--batches`` those batches at D0=256, D1=7936, E=1024.
 ``--widths`` the full-E kernel is also timed at every cluster width of 8 or
 less that divides its column tiles (``fulle_c{c}_device_ms``).  To compare
 two checkouts, run it for each in turns (parent, change, change, parent) in
-one call on one card.  Needs a CUDA card.
+one call on one card.  Every line also carries a SHA-256 digest of one
+call's ``out`` and ``choose`` (``tiled_digest``, ``fulle_digest``; inputs and
+seed are fixed), so two checkouts are held equal bit for bit by comparing
+digests.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -31,6 +35,17 @@ SHAPES = ((4096, 256, 7936, 1024), (100, 200, 5568, 768), (100, 256, 7936, 1024)
           (200, 256, 7936, 1024), (800, 256, 7936, 1024), (1024, 256, 7936, 1024),
           (2048, 256, 7936, 1024), (1, 4, 1024, 512), (63, 16, 3200, 768),
           (65, 64, 1000, 768))
+
+
+def digest(outs) -> str:
+    """SHA-256 of the bytes of a call's ``(out, choose)``."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def main(argv=None) -> int:
@@ -87,10 +102,12 @@ def main(argv=None) -> int:
             row = {"label": args.label, "shape": [B, D0, D1, E],
                    "dtype": str(dtype).split(".")[-1],
                    "tiled_plan": [plan.bm, plan.split],
+                   "tiled_digest": digest(K.fused_embrace(*ins, 3)),
                    "tiled_device_ms": graph_ms(lambda: K.fused_embrace(*ins, 3))}
             if fulle:
                 fplan = K.card_fulle_plan(B, E, D0, D1, dtype, index)
                 row["fulle_plan"] = [fplan.bm, fplan.cluster]
+                row["fulle_digest"] = digest(K.fused_embrace_fulle(*ins, 3))
                 row["fulle_device_ms"] = graph_ms(
                     lambda: K.fused_embrace_fulle(*ins, 3))
                 for c in range(1, K.MAX_SPLIT + 1) if args.widths else ():
