@@ -36,7 +36,14 @@ without them.  It
    eval batches (B = 100, 200: both halves and a 37-row tail) choose as
    the whole launch does for those rows, bit for bit, with ``out`` within
    the tolerance, and ``row_base = 0`` is the launch without it, bit for
-   bit;
+   bit.  Then the trial axis (``trial_case``): T = 2 and 8 trials at
+   B = 100 and 200 in both operand types, each trial with its own weights,
+   p0, live width and seed, in one launch of each kernel: every trial's
+   ``choose`` and ``out`` equal its single launch's bit for bit, ``out``
+   the plain version's within the tolerance, the full-E kernel chooses as
+   the tiled one; at T = 8, B = 100 it times the launch, the 8 single
+   launches, the plain version and the batched ``torch.matmul`` products
+   against 8 times one trial's bound;
 3. serve phase: builds the widest EmbraceNetMultimodal of the search space
    (FFNN 256/128/64/32, CNN 64/96/256/512 with 15-tap kernels, embracement
    1024, post layers 512/256, 566 tabular features as HEPG2) from a seeded
@@ -67,10 +74,14 @@ without them.  It
    chunk: finite losses and AUPRCs, 3 epochs run, parameters that moved,
    and exactly one kernel launch per forward pass the plans call for.  Then
    a population of 8 trials drawn as ``bench.py`` draws them (seeds 0-7),
-   split by ``plan_buckets``, bf16, 1 epoch, and its train windows/s;
+   split by ``plan_buckets``, bf16, 1 epoch: each group one population
+   program, one launch per population forward pass (not per trial), its
+   launches per train step and train windows/s;
 7. bench phase: ``tools/torch_embrace_bench.py``'s ``block_bench`` at
    B=4096 (few iterations) and ``engine_bench(True)``, the entry point that
-   reaches the full-E kernel;
+   reaches the full-E kernel; then its ``train_profile`` of the train
+   phase's 8-trial population under ``torch.profiler``: CUDA kernels a
+   train step, the card's busy share and train windows/s;
 8. CV phase: ``embracenet_tpu_torch.train`` of EmbraceNetMultimodal on
    4,000 learnable windows at 566 features and 5 % positives (about 20:1,
    so SMOTE and reverse-strand rebalancing run in every fold): 3 folds x 3
@@ -80,12 +91,17 @@ without them.  It
    finished rows in each fold's study, every trial's, fold's and the
    fold-best checkpoint, ``average_CV_AUPRC`` = round(mean of the fold
    scores, 5), finite scores, the results JSON entry and its baseline, and
-   kernel launches in every fold's search and every retrain.  The
+   in every fold's search and every retrain one kernel launch per
+   population forward pass (``FitLog``, as in the data, sweep and CLI
+   phases: epochs run x (train + eval batches), whatever the trials).  The
    fold-fused run (``CVConfig(fuse_folds=True)``, fresh storage) must
    sample the same params per study and trial number and train each trial
    as the sequential run did: every trial's train-loss history and every
    array of every checkpoint within 1e-6 of the sequential run's (the
-   test-AUPRC histories within 0.05, a second check); repeating the
+   test-AUPRC histories within 0.05, a second check; the sequential fits
+   run the fused stack's batch rows, ``plan_rows``), with fewer launches
+   than the sequential run (a fused search or retrain is one population
+   program); repeating the
    sequential call resumes every fold with no launch and the same scores;
    ``predict`` on the fold-best checkpoint launches the kernel and gives
    rows that sum to 1.  It prints each run's wall, train windows/s and
@@ -156,17 +172,18 @@ without them.  It
     the card under gloo (``chip_smoke.py --mesh-worker DIR``, killed after
     240 s): a 2 x 1 trial mesh (bit for bit) and a 1 x 2 data mesh (its
     first step against the whole batch's, its epoch beside a 1-ulp change
-    of the init); launches and ``row_base`` per rank, aggregate train
-    windows/s, the data mesh's ms per step and all-reduce share (see
-    :func:`mesh_phase`);
+    of the init); launches (one per population forward pass: 19 in every
+    fit, meshless or each rank's) and ``row_base`` per rank, aggregate
+    train windows/s, the data mesh's ms per step, all-reduces a step and
+    their share (see :func:`mesh_phase`);
 15. path-shape phase: while the serve, train, CV, data, sweep, report,
     CLI and mesh phases run (and in each mesh worker),
     ``ShapeLog`` stands in for ``fused_embrace`` and keeps the inputs and
     output of the first call at each distinct layout the paths give the
-    kernel (balanced train batches of 93-97 rows, eval batches, the bf16
-    population's width buckets, the selected HEPG2 features; a trial
-    without width buckets docks at the search space's widest D0, D1 and
-    E).  After them the kernel is replayed at each: the same output bit
+    kernel, trial axis included (balanced train batches of 93-97 rows,
+    eval batches, the bf16 population's width buckets, the selected HEPG2
+    features, populations of 1 to 9 trials; a trial without width buckets
+    docks at the search space's widest D0, D1 and E).  After them the kernel is replayed at each: the same output bit
     for bit, and the plain version's ``where(choose, d0, d1)``, d0 at
     p0 = 1 and d1 at p0 = 0 within the kernel phase's tolerance; each pair
     of the data mesh's shards (48 + 48 rows of a 95-row train batch padded
@@ -226,6 +243,9 @@ RAGGED = dict(B=100, D0=200, D1=5568, E=768, live=512)
 # the train phase's shapes: a training batch of 100, an eval batch of 200
 TRAIN = dict(B=100, D0=256, D1=7936, E=1024, live=1024)
 EVAL = dict(B=200, D0=256, D1=7936, E=1024, live=1024)
+# the trial-axis cases: populations of 2 and of 8 (bench.py's) at the
+# train and eval batches
+TRIALS = (2, 8)
 SHAPES = (MAIN, RAGGED, TRAIN, EVAL)
 # the bench phase's engine_bench batches (batch_size 1024: balanced train
 # batches of 800 and an eval batch of 2048) and a batch of 1024: unsplit
@@ -446,6 +466,92 @@ def fulle_case(shape, dtype, dev, gen):
             "docks two modalities and selects between them"}
 
 
+def trial_case(n_trials, shape, dtype, dev, gen, timed=False):
+    """Both kernels with a trial axis: ``n_trials`` trials at ``shape``,
+    each with its own weights (views of wider tensors, as the population's
+    ``dock*_w[:, :D, :E]``), biases, per-row p0, live width and seed.  Each
+    trial's ``out`` and ``choose`` equal its single launch's bit for bit
+    (the plan is one trial's, so its sums run in the same order); ``out``
+    is the plain version's ``where(choose, d0, d1)`` within the kernel
+    phase's tolerance, d0 / d1 at p0 = 1 / 0; the full-E kernel chooses as
+    the tiled one.  ``timed``: device ms of the trial-axis launch, of the
+    T single launches, of the plain version and of the two docking
+    products as batched ``torch.matmul`` calls (the library's batched
+    products, a yardstick), against T times one trial's bound."""
+    B, D0, D1, E, live = (shape[k] for k in ("B", "D0", "D1", "E", "live"))
+    T = n_trials
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+
+    def randn(*s, scale=1.0):
+        return torch.randn(*s, generator=gen, device=dev) * scale
+
+    x0 = torch.relu(randn(T, B, D0)).to(dtype)
+    x1 = torch.relu(randn(T, B, D1)).to(dtype)
+    w0 = randn(T, D0 + 56, E + 256, scale=D0 ** -0.5).to(dtype)[:, :D0, :E]
+    w1 = randn(T, D1, E + 256, scale=D1 ** -0.5).to(dtype)[:, :, :E]
+    b0, b1 = randn(T, E, scale=0.1), randn(T, E, scale=0.1)
+    lives = [max(1, live - 128 * (t % 3)) for t in range(T)]
+    e_mask = torch.stack([(torch.arange(E, device=dev) < n).float()
+                          for n in lives])
+    args = (x0, x1, w0, b0, w1, b1)
+    p0 = torch.rand(T, B, generator=gen, device=dev)
+    seeds = torch.randint(0, 2 ** 31 - 1, (T,), generator=gen, device=dev)
+    out, ch = K.fused_embrace(*args, p0, e_mask, seeds)
+    for t in range(T):
+        o1, c1 = K.fused_embrace(*(a[t] for a in args), p0[t], e_mask[t],
+                                 seeds[t])
+        require(torch.equal(c1, ch[t]) and torch.equal(o1, out[t]),
+                f"trial axis {T} x {shape}: trial {t} differs from its "
+                "single launch")
+    ones, zeros = torch.ones(T, B, device=dev), torch.zeros(T, B, device=dev)
+    u0 = torch.zeros(T, B, E, device=dev)
+    d0, _ = K.fused_embrace_reference(*args, ones, e_mask, u0)
+    d1, _ = K.fused_embrace_reference(*args, zeros, e_mask, u0)
+    want = torch.where(ch.bool(), d0, d1)
+    torch.testing.assert_close(out, want, rtol=tol, atol=tol)
+    for p, d, c in ((ones, d0, 1), (zeros, d1, 0)):
+        o, chp = K.fused_embrace(*args, p, e_mask, seeds)
+        torch.testing.assert_close(o, d, rtol=tol, atol=tol)
+        require(bool((chp == c).all()), f"trial axis: p0 = {c} must choose "
+                f"modality {1 - c} never")
+    fo, fch = K.fused_embrace_fulle(*args, p0, e_mask, seeds)
+    require(torch.equal(fch, ch), "trial axis: the full-E kernel must choose "
+            "as the tiled one")
+    torch.testing.assert_close(fo, want, rtol=tol, atol=tol)
+    case = {"trials": T, "shape": [B, D0, D1, E], "lives": lives,
+            "dtype": str(dtype).split(".")[-1],
+            "max_abs_err": float((out - want).abs().max()),
+            "fulle_max_abs_err": float((fo - want).abs().max())}
+    if timed:
+        u = torch.rand(T, B, E, generator=gen, device=dev)
+
+        def singles():
+            for t in range(T):
+                K.fused_embrace(*(a[t] for a in args), p0[t], e_mask[t],
+                                seeds[t])
+
+        def products():
+            with _highest_matmul_precision():
+                return torch.matmul(x0, w0), torch.matmul(x1, w1)
+
+        bound_ms, bound_by, flops, nbytes = bound(B, D0, D1, E, dtype)
+        case.update({
+            "ms": cuda_ms(lambda: K.fused_embrace(*args, p0, e_mask, seeds)),
+            "device_ms": graph_ms(lambda: K.fused_embrace(*args, p0, e_mask,
+                                                          seeds)),
+            "singles_device_ms": graph_ms(singles),
+            "fulle_device_ms": graph_ms(lambda: K.fused_embrace_fulle(
+                *args, p0, e_mask, seeds)),
+            "plain_ms": cuda_ms(lambda: K.fused_embrace_reference(
+                *args, p0, e_mask, u)),
+            "batched_products_ms": graph_ms(products),
+            "bound_ms": T * bound_ms, "bound_by": bound_by,
+            "tflops": T * flops / graph_ms(lambda: K.fused_embrace(
+                *args, p0, e_mask, seeds)) / 1e9,
+            "library_ms": None})
+    return case
+
+
 def grad_phase(shape, dev, gen):
     """The fused Function's gradients against autograd through the unfused
     path (the plain version, differentiated by torch) at p0 in {1, 0}, at
@@ -537,13 +643,21 @@ def train_phase():
                    train, test, pcfg)
     pop_wall = time.perf_counter() - t0
     pop_launches = K.LAUNCHES - pop_launches0
-    require(pop_launches > 0, "population: the kernel was never launched")
+    n_tr = balanced_plan(train["y"], batch, seed=123).idx.shape[0]
+    n_ev = eval_plan(len(test["y"]), 2 * batch, seed=123).idx.shape[0]
+    want = len(groups) * (n_tr + n_ev)
+    require(pop_launches == want, f"population: {pop_launches} kernel "
+            f"launches, expected {want} (one per population forward pass "
+            f"of each of its {len(groups)} fits)")
     return {"launches": launches + pop_launches, "single": {
         "launches": launches, "expected_launches": n_fwd, "wall_s": wall,
         "train_windows_per_s": epochs * len(train["y"]) / wall,
         "loss_train": res.loss_train[0], "auprc_train": res.auprc_train[0],
         "auprc_test": res.auprc_test[0], "max_param_move": moved},
         "population": {"trials": 8, "groups": groups, "launches": pop_launches,
+                       "expected_launches": want,
+                       "launches_per_train_step": pop_launches
+                       / (len(groups) * n_tr),
                        "wall_s": pop_wall,
                        "train_windows_per_s": 8 * len(train["y"]) / pop_wall}}
 
@@ -556,7 +670,14 @@ def bench_phase():
     eng = bench.engine_bench(True)
     require(eng["kernel_launches"] > 0, "bench: engine_bench(True) launched "
             "no fused kernel")
-    return {"launches_fulle": launches, "block": row, "engine_fused": eng}
+    # the 8-trial bf16 population of the train phase under torch.profiler:
+    # kernels a train step and the card's busy share
+    pop = bench.train_profile(True, "bfloat16", population=8)
+    require(pop["fused_launches"] == pop["expected_launches"],
+            f"bench: the population profile launched {pop['fused_launches']}"
+            f" fused kernels, expected {pop['expected_launches']}")
+    return {"launches_fulle": launches, "block": row, "engine_fused": eng,
+            "population_profile": pop}
 
 
 def serve_phase(workdir):
@@ -620,18 +741,21 @@ def serve_phase(workdir):
 
 
 def strided_copy(w):
-    """A copy of the weight view ``w`` with its row stride (the model hands
-    the kernel ``dock*_w[:D, :E]`` of the full-width parameter)."""
-    wide = torch.empty((w.shape[0], w.stride(0)), dtype=w.dtype, device=w.device)
-    wide[:, :w.shape[1]].copy_(w)
-    return wide[:, :w.shape[1]]
+    """A copy of the weight view ``w`` with its strides (the model hands
+    the kernel ``dock*_w[:, :D, :E]`` of the full-width parameter)."""
+    extent = 1 + sum((n - 1) * st for n, st in zip(w.shape, w.stride()))
+    base = torch.empty(extent, dtype=w.dtype, device=w.device)
+    view = base.as_strided(w.shape, w.stride())
+    view.copy_(w)
+    return view
 
 
 class ShapeLog:
     """Stands in for ``ops.embrace.fused_embrace`` (``models.embracenet``
     looks it up at each call) while the counted phases run.  At each
     distinct operand layout (B, D0, D1, E, dtype, the weights' row strides,
-    row_base) it keeps the first call's inputs and outputs, copied on the
+    row_base, T trials) it keeps the first call's inputs and outputs with a
+    trial axis (a call without one is a population of one), copied on the
     stream right after the launch; it launches no kernel and syncs
     nothing."""
 
@@ -643,9 +767,15 @@ class ShapeLog:
         out, choose = self.real(x0, x1, w0, b0, w1, b1, p0, e_mask, seed,
                                 row_base=row_base)
         if x0.is_cuda:
-            key = (x0.shape[0], w0.shape[0], w1.shape[0], w0.shape[1],
-                   str(x0.dtype).split(".")[-1], w0.stride(0), w1.stride(0),
-                   int(row_base))
+            if x0.dim() == 2:   # one trial: the trial axis as a view
+                x0, x1, w0, b0, w1, b1, p0, e_mask = (
+                    t[None] for t in (x0, x1, w0, b0, w1, b1, p0, e_mask))
+                o, c = out[None], choose[None]
+            else:
+                o, c = out, choose
+            key = (x0.shape[1], w0.shape[1], w1.shape[1], w0.shape[2],
+                   str(x0.dtype).split(".")[-1], w0.stride(1), w1.stride(1),
+                   int(row_base), x0.shape[0])
             if key not in self.seen:
                 with torch.no_grad():
                     self.seen[key] = {"calls": 0, "args": (
@@ -653,7 +783,7 @@ class ShapeLog:
                         strided_copy(w1), b1.clone(), p0.clone(),
                         e_mask.clone(),
                         seed.clone() if isinstance(seed, torch.Tensor) else seed),
-                        "out": out.detach().clone(), "choose": choose.clone()}
+                        "out": o.detach().clone(), "choose": c.clone()}
             self.seen[key]["calls"] += 1
         return out, choose
 
@@ -663,12 +793,12 @@ def path_case(key, rec, dev):
     row_base): the same outputs bit for bit as on the path,
     ``where(choose, d0, d1)`` of the plain version within the kernel
     phase's tolerance, d0 / d1 at p0 = 1 / 0, masked columns 0."""
-    B, D0, D1, E, dtype, s0, s1, row_base = key
+    B, D0, D1, E, dtype, s0, s1, row_base, T = key
     tol = 1e-4 if dtype == "float32" else 1e-2
     x0, x1, w0, b0, w1, b1, p0, e_mask, seed = rec["args"]
     args = (x0, x1, w0, b0, w1, b1)
-    ones, zeros = torch.ones(B, device=dev), torch.zeros(B, device=dev)
-    u0 = torch.zeros(B, E, device=dev)
+    ones, zeros = torch.ones(T, B, device=dev), torch.zeros(T, B, device=dev)
+    u0 = torch.zeros(T, B, E, device=dev)
     d0, _ = K.fused_embrace_reference(*args, ones, e_mask, u0)
     d1, _ = K.fused_embrace_reference(*args, zeros, e_mask, u0)
     out, ch = K.fused_embrace(*args, p0, e_mask, seed, row_base=row_base)
@@ -677,7 +807,7 @@ def path_case(key, rec, dev):
             "got")
     want = torch.where(ch.bool(), d0, d1)
     torch.testing.assert_close(out, want, rtol=tol, atol=tol)
-    require(bool((out[:, e_mask == 0] == 0).all()),
+    require(bool((out.masked_select((e_mask == 0)[:, None, :]) == 0).all()),
             f"path shape {key}: masked columns must be 0")
     out1, ch1 = K.fused_embrace(*args, ones, e_mask, 1)
     torch.testing.assert_close(out1, d0, rtol=tol, atol=tol)
@@ -685,8 +815,8 @@ def path_case(key, rec, dev):
     torch.testing.assert_close(out0, d1, rtol=tol, atol=tol)
     require(bool((ch1 == 1).all()) and bool((ch0 == 0).all()),
             f"path shape {key}: p0 = 1 / 0 must choose modality 0 / 1")
-    return {"shape": [B, D0, D1, E], "dtype": dtype, "w_row_strides": [s0, s1],
-            "row_base": row_base,
+    return {"shape": [B, D0, D1, E], "trials": T, "dtype": dtype,
+            "w_row_strides": [s0, s1], "row_base": row_base,
             "live": int(e_mask.sum()), "calls": rec["calls"],
             "max_abs_err": max(float((out - want).abs().max()),
                                float((out1 - d0).abs().max()),
@@ -695,12 +825,30 @@ def path_case(key, rec, dev):
             "max_abs_plain": max(float(d0.abs().max()), float(d1.abs().max()))}
 
 
+def population_launches(spec, data_train, data_test, cfg, epochs, **kw):
+    """The fused-kernel launches of a fit whose population ran ``epochs``
+    epochs: one a population forward pass, ``epochs`` x (its train batches
+    + its eval batches) for an EmbraceNetMultimodal fit with the fused
+    kernel on, whatever its number of trials; 0 for any other fit."""
+    if spec.name != "EmbraceNetMultimodal" or cfg.fused_embrace is False:
+        return 0
+    tp, ep = kw.get("train_plans"), kw.get("eval_plans")
+    nb_train = (max(p.idx.shape[0] for p in tp) if tp else balanced_plan(
+        np.asarray(data_train["y"]), cfg.batch_size, seed=123).idx.shape[0])
+    nb_eval = (max(p.idx.shape[0] for p in ep) if ep else eval_plan(
+        len(np.asarray(data_test["y"])), 2 * cfg.batch_size,
+        seed=123).idx.shape[0])
+    return epochs * (nb_train + nb_eval)
+
+
 class FitLog:
     """Wraps ``engine.fit`` (which ``hpo.search`` and ``training.cv`` call
     through the module) to log, per fit, its kind (a search reports each
     epoch, a retrain does not), its wall, its kernel launches, the windows
     its trials trained (the fit's own ``chunk_callback`` count) and each
-    trial's train-loss history."""
+    trial's train-loss history.  Every fit must launch the fused kernel
+    once per population forward pass (:func:`population_launches` of the
+    epochs its chunks ran)."""
 
     def __init__(self):
         self.fits = []
@@ -708,10 +856,11 @@ class FitLog:
 
     def __call__(self, spec, hps, opts, data_train, data_test, cfg, **kw):
         entry = {"kind": "search" if kw.get("report_fn") else "retrain",
-                 "trials": len(hps), "windows": 0.0}
+                 "trials": len(hps), "windows": 0.0, "epochs": 0}
 
         def count(_chunk, n_ep, _wall, windows_per_epoch):
             entry["windows"] += windows_per_epoch * n_ep
+            entry["epochs"] += n_ep
 
         launches0 = K.LAUNCHES
         t0 = time.perf_counter()
@@ -719,6 +868,12 @@ class FitLog:
                         chunk_callback=count, **kw)
         entry["wall_s"] = time.perf_counter() - t0   # fit() ends with a fetch
         entry["launches"] = K.LAUNCHES - launches0
+        entry["expected_launches"] = population_launches(
+            spec, data_train, data_test, cfg, entry["epochs"], **kw)
+        require(entry["launches"] == entry["expected_launches"],
+                f"a fit of {len(hps)} trials launched {entry['launches']} "
+                f"kernels, expected {entry['expected_launches']} (one per "
+                "population forward pass)")
         entry["loss_train"] = res.loss_train
         self.fits.append(entry)
         return res
@@ -867,6 +1022,9 @@ def cv_phase(workdir):
         require([f["kind"] for f in fus_fits] == ["search", "retrain"]
                  and all(f["launches"] > 0 for f in fus_fits),
                  f"cv: fused fits {fus_fits}")
+        require(fus_launches < seq_launches, f"cv: the fold-fused run "
+                f"launched {fus_launches} kernels, the sequential one "
+                f"{seq_launches}")
         # each trial must train as in the sequential run: the same losses
         # and the same parameters in every checkpoint
         exact = fused_vs_sequential(seq_fits, fus_fits, seq_dir, fus_dir)
@@ -1361,9 +1519,15 @@ def cli_phase(workdir, pipe):
     ckdir = os.path.join(workdir, "cli_models")
     store = ["--results", results, "--storage", os.path.join(workdir, "cli.db"),
              "--checkpoint-dir", ckdir]
-    scores = last_json(run("train", [
-        "train", "--model", CV_MODEL, "--cell", CV_CELL, "--task", DATA_TASK,
-        *where, "--epochs", "1", "--folds", "2", "--trials", "2", *store]))
+    log = FitLog()
+    engine.fit = log
+    try:
+        scores = last_json(run("train", [
+            "train", "--model", CV_MODEL, "--cell", CV_CELL, "--task",
+            DATA_TASK, *where, "--epochs", "1", "--folds", "2", "--trials",
+            "2", *store]))
+    finally:
+        engine.fit = log.real
     require(math.isfinite(scores["average_CV_AUPRC"]) and launches["train"] > 0,
             f"cli: train {scores}, {launches['train']} launches")
     ev = json.loads(run("evaluate", [
@@ -1597,15 +1761,17 @@ def shard_pair_case(first, second, dev):
     require(all(same_value(xa[i], xb[i]) for i in (2, 3, 4, 5, 7, 8)),
             f"mesh: the data replicas launched {k0} / {k1} with other "
             "weights, seed or mask")
-    whole = (torch.cat([xa[0], xb[0]]), torch.cat([xa[1], xb[1]]))
-    out, ch = K.fused_embrace(*whole, *xa[2:6], torch.cat([xa[6], xb[6]]),
+    # rows are axis 1 of every [T, B, ...] operand
+    whole = (torch.cat([xa[0], xb[0]], 1), torch.cat([xa[1], xb[1]], 1))
+    out, ch = K.fused_embrace(*whole, *xa[2:6], torch.cat([xa[6], xb[6]], 1),
                               xa[7], xa[8])
-    require(torch.equal(ch, torch.cat([a["choose"], b["choose"]])),
+    require(torch.equal(ch, torch.cat([a["choose"], b["choose"]], 1)),
             f"mesh: shards {k0} / {k1} chose other than their rows of the "
             "whole batch's launch")
-    want = torch.cat([a["out"], b["out"]])
+    want = torch.cat([a["out"], b["out"]], 1)
     torch.testing.assert_close(want, out, rtol=tol, atol=tol)
-    return {"shape": [int(out.shape[0])] + list(k0[1:4]), "dtype": k0[4],
+    return {"shape": [int(out.shape[1])] + list(k0[1:4]), "trials": k0[8],
+            "dtype": k0[4],
             "shards": [[0, k0[0]], [k1[7], k1[7] + k1[0]]],
             "max_abs_err": float((want - out).abs().max())}
 
@@ -1698,7 +1864,8 @@ def mesh_phase(workdir):
     spec, hps, opts, train, test, cfg = mesh_population()
     n_tr, w_tr = balanced_plan(train["y"], cfg.batch_size, seed=123).idx.shape
     n_ev, w_ev = eval_plan(len(test["y"]), 2 * cfg.batch_size, seed=123).idx.shape
-    per_trial = cfg.num_epochs * (n_tr + n_ev)       # forward passes a trial
+    # forward passes of a population, whatever its number of trials
+    per_trial = cfg.num_epochs * (n_tr + n_ev)
     windows = len(hps) * cfg.num_epochs * len(train["y"])
 
     def timed_fit(mesh=None, init=(None, None)):
@@ -1711,9 +1878,9 @@ def mesh_phase(workdir):
         return res, time.perf_counter() - t0, K.LAUNCHES
 
     ref, ref_wall, ref_launches = timed_fit()
-    require(ref_launches == len(hps) * per_trial,
+    require(ref_launches == per_trial,
             f"mesh: meshless fit launched {ref_launches}, expected "
-            f"{len(hps) * per_trial}")
+            f"{per_trial} (one per population forward pass)")
     save_checkpoint(os.path.join(workdir, "ref"),
                     {"params": ref.params, "bn_state": ref.bn_state})
     ref_trees, _ = load_checkpoint(os.path.join(workdir, "ref"))
@@ -1792,14 +1959,14 @@ def mesh_phase(workdir):
         # each shard's first row of a train batch and of an eval batch
         k = data["coords"]["data"]
         want_bases = sorted({k * -(-w // 2) for w in (w_tr, w_ev)})
-        require(data["launches"] == len(hps) * per_trial
+        require(data["launches"] == per_trial
                 and data["row_bases"] == want_bases,
                 f"mesh: rank {r['rank']} of the data mesh launched "
                 f"{data['launches']} at rows {data['row_bases']}, expected "
-                f"{len(hps) * per_trial} at {want_bases}")
+                f"{per_trial} at {want_bases}")
     trial_wall = max(r["trial_2x1"]["wall_s"] for r in ranks)
     data_wall = max(r["data_1x2"]["wall_s"] for r in ranks)
-    steps = len(hps) * cfg.num_epochs * n_tr
+    steps = cfg.num_epochs * n_tr                   # stacked steps
     return {"launches": ref_launches + one_launches
             + sum(r[m]["launches"] for r in ranks for m in ("trial_2x1", "data_1x2")),
             "plan_widths": [w_tr, w_ev],
@@ -1818,6 +1985,9 @@ def mesh_phase(workdir):
             "data_1x2": {"wall_s": data_wall,
                          "train_windows_per_s": windows / data_wall,
                          "ms_per_train_step": 1e3 * data_wall / steps,
+                         "allreduce_calls_per_step": [
+                             r["data_1x2"]["allreduce_calls"] / steps
+                             for r in ranks],
                          "allreduce_s_per_rank": [r["data_1x2"]["allreduce_s"]
                                                   for r in ranks],
                          "allreduce_calls_per_rank": [
@@ -1844,8 +2014,9 @@ def mesh_shard_cases(records, widths, dev):
     cases = [path_case(key, rec, dev) for recs in records
              for key, rec in recs.items()]
     first, second = records
-    pairs = [shard_pair_case(((k1[7],) + k1[1:7] + (0,),
-                              first[(k1[7],) + k1[1:7] + (0,)]), (k1, b), dev)
+    pairs = [shard_pair_case(((k1[7],) + k1[1:7] + (0,) + k1[8:],
+                              first[(k1[7],) + k1[1:7] + (0,) + k1[8:]]),
+                             (k1, b), dev)
              for k1, b in second.items() if k1[7] != 0]
     # a plan row is padded with masked columns to a multiple of the 2 shards
     padded = {2 * -(-w // 2) for w in widths}
@@ -1905,6 +2076,13 @@ def main() -> int:
                  for dtype in (torch.float32, torch.bfloat16)]
     print(json.dumps({"row_base_cases": row_cases, "card": card}), flush=True)
     lap("row_base")
+    # the trial axis: T trials in one launch of each kernel
+    trial_cases = [trial_case(n, shape, dtype, dev, gen,
+                              timed=(n == 8 and shape is TRAIN))
+                   for n in TRIALS for shape in (TRAIN, EVAL)
+                   for dtype in (torch.float32, torch.bfloat16)]
+    print(json.dumps({"trial_cases": trial_cases, "card": card}), flush=True)
+    lap("trials")
     for shape in (MAIN, TRAIN):
         grads = grad_phase(shape, dev, gen)
         print(json.dumps({"gradient": grads, "card": card}), flush=True)
@@ -1977,6 +2155,10 @@ def main() -> int:
 
     def row(name, source_line, launches, cs):
         main_f32 = cs[0]
+        ms_key = "device_ms" if name == "embrace_fused_fwd" else "fulle_device_ms"
+        trial_axis = {c["dtype"]: {k: c[k] for k in (
+            ms_key, "singles_device_ms", "batched_products_ms", "bound_ms",
+            "bound_by", "plain_ms")} for c in trial_cases if "ms" in c}
         return {"name": name, "route": "cuda",
                 "source": "embracenet_tpu_torch/csrc/embrace.cu",
                 "replaces": f"embracenet_tpu/ops/pallas/embrace.py:{source_line}",
@@ -1986,7 +2168,8 @@ def main() -> int:
                 "ms": main_f32["ms"], "device_ms": main_f32["device_ms"],
                 "plain_ms": main_f32["plain_ms"],
                 "bound_ms": main_f32["bound_ms"], "bound_by": main_f32["bound_by"],
-                "library_ms": main_f32["library_ms"]}
+                "library_ms": main_f32["library_ms"],
+                "trials_8_b100": trial_axis}
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
@@ -1995,9 +2178,11 @@ def main() -> int:
             + data_out["launches"] + sweep_out["launches"]
             + report_out["launches"] + cli_out["launches"]
             + mesh_out["launches"],
-            cases + path_cases + mesh_cases + pair_cases),
+            cases + path_cases + mesh_cases + pair_cases + trial_cases),
         row("embrace_fused_fwd_fulle", 78, bench_out["launches_fulle"],
-            fulle_cases)]}), flush=True)
+            fulle_cases + [{"dtype": c["dtype"],
+                            "max_abs_err": c["fulle_max_abs_err"]}
+                           for c in trial_cases])]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,18 +1,36 @@
 // Fused EmbraceNet docking + stochastic embracement, forward, for Hopper
 // (sm_90a).  Replaces the Pallas TPU kernel
 // embracenet_tpu/ops/pallas/embrace.py::_kernel (reached there through
-// _fused_fwd_raw and fused_embrace).
+// _fused_fwd_raw and fused_embrace), with the leading trial axis that
+// Pallas' batching rule gives it under the JAX engine's jax.vmap over a
+// population: one launch computes T trials, trial t from its own operands
+// and its own seed.
 //
-// What it computes, for every (row r, feature c) of the [B, E] output:
+// What it computes, for every trial t and (row r, feature c) of its [B, E]
+// output (all operands below are trial t's: x0 [T, B, D0], w0 [T, D0, E],
+// b0, b1, e_mask [T, E], p0 [T, B], out and choose [T, B, E]):
 //   d0 = relu(x0[r] . w0[:, c] + b0[c])          x0 [B, D0], w0 [D0, E]
 //   d1 = relu(x1[r] . w1[:, c] + b1[c])          x1 [B, D1], w1 [D1, E]
-//   u  = top 24 bits of Philox4x32-10(key = seed,
+//   u  = top 24 bits of Philox4x32-10(key = seed of trial t,
 //        counter = (row_base + r, c, 0, 0)) word 0, times 2^-24: uniform on
 //        [0, 1), so p0 = 1 always picks modality 0 and p0 = 0 never does
 //        (row_base: the batch row of x0's row 0, for a shard of a batch)
 //   choose[r, c] = u < p0[r]                     (uint8)
 //   out[r, c]    = (choose ? d0 : d1) * e_mask[c] (float32)
-// The [B, E] docking activations never reach device memory.
+// The [B, E] docking activations never reach device memory.  A trial's
+// draw does not depend on the other trials: its choose is bit for bit that
+// of a launch on its operands alone.
+//
+// The trial axis.  It is the outermost coordinate of every operand: each is
+// read through a rank-3 TMA tensor map (columns, rows, trials), so no tile
+// crosses from one trial into the next and the ragged row edge zero-fills
+// per trial.  Grid z runs over T x row tiles (z = t * row_tiles + row
+// tile), the clusters along x (split K) or y (full E) never span trials,
+// and the epilogue offsets b0, b1, e_mask, p0, out, choose and the seed by
+// the trial.  The plan (ops/embrace.py) is one trial's, whatever T: its
+// tile rows and K split fix the order in which a trial's sums are taken, so
+// a trial's out is bit for bit that of its launch alone, and at T = 8, B =
+// 100 the grid runs 8 x 128 CTAs in several waves.
 //
 // Bound.  Operations 2 * B * (D0 + D1) * E; bytes, each input read once and
 // each output written once: x0, x1, w0, w1 in the operand type, out float32,
@@ -216,14 +234,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// one 2-D box of `map` at (c0 = column, c1 = row) into shared memory
+// one box of `map` at (c0 = column, c1 = row, c2 = trial) into shared memory
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1) {
+                                         uint64_t* bar, int c0, int c1, int c2) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
+      "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -233,13 +251,14 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
 __device__ __forceinline__ void tma_load_multicast(void* dst,
                                                    const CUtensorMap* map,
                                                    uint64_t* bar, int c0,
-                                                   int c1, uint16_t mask) {
+                                                   int c1, int c2,
+                                                   uint16_t mask) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes.multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;" ::"r"(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;" ::"r"(
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask),
-      "r"(c0), "r"(c1)
+      "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -415,8 +434,22 @@ struct Epilogue {
   uint8_t* choose;
   int B, E;
   uint32_t seed;
-  const long long* seed_dev;
+  const long long* seed_dev;  // null, or one int64 key per trial
   int row_base;  // batch row of this launch's row 0 (a shard's first row)
+
+  // trial t's operands and key
+  __device__ Epilogue trial(int t) const {
+    Epilogue e = *this;
+    const int64_t be = (int64_t)B * E;
+    e.b0 += (int64_t)t * E;
+    e.b1 += (int64_t)t * E;
+    e.e_mask += (int64_t)t * E;
+    e.p0 += (int64_t)t * B;
+    e.out += t * be;
+    e.choose += t * be;
+    if (e.seed_dev) e.seed_dev += t;
+    return e;
+  }
 };
 
 __device__ __forceinline__ void finish(const Epilogue& ep, uint32_t key, int r,
@@ -452,9 +485,10 @@ __host__ __device__ constexpr int smem_bytes() {
 }
 
 // One kernel, two cluster roles.  Tiled (FULLE false): grid (split,
-// ceil(E / BN), ceil(B / BM)), clusters of (split, 1, 1) that share one
-// output tile's K.  Full-E (FULLE true): grid (1, ceil(E / BN), ceil(B /
-// BM)), clusters of (1, c, 1) that span c column tiles of one row tile;
+// ceil(E / BN), T * ceil(B / BM)), clusters of (split, 1, 1) that share one
+// output tile's K.  Full-E (FULLE true): grid (1, ceil(E / BN), T *
+// ceil(B / BM)), clusters of (1, c, 1) that span c column tiles of one row
+// tile of one trial;
 // every rank walks all of K in the unsplit order, loads its own w tiles,
 // and each stage's x tile reaches all c ranks by one multicast.  CONSUMERS
 // threads compute; the warp after them issues the TMA loads.
@@ -464,7 +498,7 @@ embrace_fused_fwd_kernel(const __grid_constant__ CUtensorMap map_x0,
                          const __grid_constant__ CUtensorMap map_w0,
                          const __grid_constant__ CUtensorMap map_x1,
                          const __grid_constant__ CUtensorMap map_w1,
-                         const Epilogue ep, int k0_tiles, int k1_tiles,
+                         const Epilogue ep_all, int k0_tiles, int k1_tiles,
                          int cluster_ctas, int k_split) {
   constexpr int C = Cfg::CONSUMERS, NACC = Cfg::NACC, STAGES = Cfg::STAGES;
   constexpr int G = Cfg::GROUPS, GT = C / G;
@@ -489,7 +523,12 @@ embrace_fused_fwd_kernel(const __grid_constant__ CUtensorMap map_x0,
   const int split = FULLE ? k_split : ctas;
   const int kq = FULLE ? rank % k_split : rank;
   const int tid = threadIdx.x;
-  const int col0 = blockIdx.y * Cfg::BN, row0 = blockIdx.z * Cfg::BM;
+  // grid z: trial-major over the row tiles of every trial
+  const int row_tiles = (ep_all.B + Cfg::BM - 1) / Cfg::BM;
+  const int trial = blockIdx.z / row_tiles;
+  const Epilogue ep = ep_all.trial(trial);
+  const int col0 = blockIdx.y * Cfg::BN;
+  const int row0 = (blockIdx.z - trial * row_tiles) * Cfg::BM;
   // The K tiles of x0 @ w0, then those of x1 @ w1, go to the ranks in
   // contiguous shares of one list: rank q takes list tiles [lo, hi), the
   // first n0 of them of x0 @ w0.
@@ -528,12 +567,14 @@ embrace_fused_fwd_kernel(const __grid_constant__ CUtensorMap map_x0,
         // each CTA expects the whole x tile, whichever rank issues it:
         // full-E rank t % c, for all ranks of the cluster
         mbar_expect_tx(&full[s], STAGE_BYTES);
-        if (!FULLE || ctas == 1) tma_load(a, mx, &full[s], k, row0);
+        if (!FULLE || ctas == 1) tma_load(a, mx, &full[s], k, row0, trial);
         else if (t % ctas == rank)
-          tma_load_multicast(a, mx, &full[s], k, row0, (uint16_t)((1u << ctas) - 1));
+          tma_load_multicast(a, mx, &full[s], k, row0, trial,
+                             (uint16_t)((1u << ctas) - 1));
 #pragma unroll
         for (int h = 0; h < Cfg::BN / Cfg::BOX_N; ++h)
-          tma_load(b + h * BOX_BYTES, mw, &full[s], col0 + h * Cfg::BOX_N, k);
+          tma_load(b + h * BOX_BYTES, mw, &full[s], col0 + h * Cfg::BOX_N, k,
+                   trial);
       }
     }
     __syncwarp();
@@ -657,19 +698,24 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a [rows, cols] matrix with row stride ld (elements), read in boxes of
-// box_rows x box_cols; out-of-bounds elements read as zero
+// T matrices of [rows, cols], row stride ld and trial stride ldt
+// (elements), read in boxes of box_rows x box_cols of one trial;
+// out-of-bounds elements read as zero
 bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType dt,
-              int item, long long rows, long long cols, long long ld,
-              int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
-  // a single row's stride is never used, but must be a multiple of 16 bytes
+              int item, int T, long long rows, long long cols, long long ld,
+              long long ldt, int box_cols, int box_rows,
+              CUtensorMapSwizzle swizzle) {
+  // a stride that is never used (one row, one trial) must still be a
+  // multiple of 16 bytes
   const cuuint64_t stride =
       rows > 1 ? (cuuint64_t)ld * item : (((cuuint64_t)cols * item + 15) / 16) * 16;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {stride};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encoder()(map, dt, 2, const_cast<void*>(base), dims, strides, box,
+  const cuuint64_t tstride = T > 1 ? (cuuint64_t)ldt * item
+                                   : stride * (cuuint64_t)(rows > 1 ? rows : 1);
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)T};
+  const cuuint64_t strides[2] = {stride, tstride};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encoder()(map, dt, 3, const_cast<void*>(base), dims, strides, box,
                    elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -681,7 +727,7 @@ bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType dt,
 // device.
 template <class Cfg, bool FULLE>
 cudaError_t launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
-                          int B, int E, int cluster, cudaStream_t stream) {
+                          int T, int B, int E, int cluster, cudaStream_t stream) {
   constexpr int smem = smem_bytes<Cfg>();
   static unsigned long long lifted = 0;  // one bit per device
   int device = 0;
@@ -695,7 +741,7 @@ cudaError_t launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
   }
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(FULLE ? 1 : cluster, (E + Cfg::BN - 1) / Cfg::BN,
-                      (B + Cfg::BM - 1) / Cfg::BM);
+                      T * ((B + Cfg::BM - 1) / Cfg::BM));
   cfg->blockDim = dim3(Cfg::CONSUMERS + 32);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = stream;
@@ -709,9 +755,11 @@ cudaError_t launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
 }
 
 template <class Cfg, bool FULLE>
-int launch(const void* x0, long long ld_x0, const void* x1, long long ld_x1,
-           const void* w0, long long ld_w0, const void* w1, long long ld_w1,
-           const Epilogue& ep, int D0, int D1, int cluster, cudaStream_t stream) {
+int launch(const void* x0, long long ld_x0, long long lt_x0, const void* x1,
+           long long ld_x1, long long lt_x1, const void* w0, long long ld_w0,
+           long long lt_w0, const void* w1, long long ld_w1, long long lt_w1,
+           const Epilogue& ep, int T, int D0, int D1, int cluster,
+           cudaStream_t stream) {
   constexpr int item = (int)sizeof(typename Cfg::T);
   // a full-E cluster spans whole column tiles: c divides them
   if (FULLE && ((ep.E + Cfg::BN - 1) / Cfg::BN) % cluster != 0)
@@ -719,18 +767,20 @@ int launch(const void* x0, long long ld_x0, const void* x1, long long ld_x1,
   if (!encoder()) return (int)cudaErrorNotSupported;
   CUtensorMap mx0, mw0, mx1, mw1;
   const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  if (!make_map(&mx0, x0, Cfg::DT, item, ep.B, D0, ld_x0, Cfg::BK, Cfg::BM, sw) ||
-      !make_map(&mx1, x1, Cfg::DT, item, ep.B, D1, ld_x1, Cfg::BK, Cfg::BM, sw) ||
-      !make_map(&mw0, w0, Cfg::DT, item, D0, ep.E, ld_w0, Cfg::BOX_N, Cfg::BK,
-                Cfg::W_SWIZZLE) ||
-      !make_map(&mw1, w1, Cfg::DT, item, D1, ep.E, ld_w1, Cfg::BOX_N, Cfg::BK,
-                Cfg::W_SWIZZLE))
+  if (!make_map(&mx0, x0, Cfg::DT, item, T, ep.B, D0, ld_x0, lt_x0, Cfg::BK,
+                Cfg::BM, sw) ||
+      !make_map(&mx1, x1, Cfg::DT, item, T, ep.B, D1, ld_x1, lt_x1, Cfg::BK,
+                Cfg::BM, sw) ||
+      !make_map(&mw0, w0, Cfg::DT, item, T, D0, ep.E, ld_w0, lt_w0, Cfg::BOX_N,
+                Cfg::BK, Cfg::W_SWIZZLE) ||
+      !make_map(&mw1, w1, Cfg::DT, item, T, D1, ep.E, ld_w1, lt_w1, Cfg::BOX_N,
+                Cfg::BK, Cfg::W_SWIZZLE))
     return (int)cudaErrorInvalidValue;
 
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   const cudaError_t err =
-      launch_config<Cfg, FULLE>(&cfg, attr, ep.B, ep.E, cluster, stream);
+      launch_config<Cfg, FULLE>(&cfg, attr, T, ep.B, ep.E, cluster, stream);
   if (err != cudaSuccess) return (int)err;
   const int k0_tiles = (D0 + Cfg::BK - 1) / Cfg::BK;
   const int k1_tiles = (D1 + Cfg::BK - 1) / Cfg::BK;
@@ -751,17 +801,20 @@ int with_tiles(int dtype, int bm, int bad, F f) {
 }
 
 template <bool FULLE>
-int entry(int dtype, const void* x0, long long ld_x0, const void* x1,
-          long long ld_x1, const void* w0, long long ld_w0, const void* w1,
-          long long ld_w1, const Epilogue& ep, int D0, int D1, void* stream,
-          int bm, int cluster) {
-  if (ep.B <= 0 || ep.E <= 0) return (int)cudaSuccess;
-  if (D0 <= 0 || D1 <= 0 || cluster < 1 || cluster > 8)
+int entry(int dtype, const void* x0, long long ld_x0, long long lt_x0,
+          const void* x1, long long ld_x1, long long lt_x1, const void* w0,
+          long long ld_w0, long long lt_w0, const void* w1, long long ld_w1,
+          long long lt_w1, const Epilogue& ep, int T, int D0, int D1,
+          void* stream, int bm, int cluster) {
+  if (T <= 0 || ep.B <= 0 || ep.E <= 0) return (int)cudaSuccess;
+  if (D0 <= 0 || D1 <= 0 || cluster < 1 || cluster > 8 ||
+      (long long)T * ((ep.B + bm - 1) / bm) > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_tiles(dtype, bm, (int)cudaErrorInvalidValue, [&](auto tiles) {
-    return launch<decltype(tiles), FULLE>(x0, ld_x0, x1, ld_x1, w0, ld_w0, w1,
-                                          ld_w1, ep, D0, D1, cluster, s);
+    return launch<decltype(tiles), FULLE>(x0, ld_x0, lt_x0, x1, ld_x1, lt_x1,
+                                          w0, ld_w0, lt_w0, w1, ld_w1, lt_w1,
+                                          ep, T, D0, D1, cluster, s);
   });
 }
 
@@ -769,14 +822,19 @@ int entry(int dtype, const void* x0, long long ld_x0, const void* x1,
 
 // The two launch entries, embrace_fused_fwd (tiled) and
 // embrace_fused_fwd_fulle (full-E): dtype 0 = float32 operands, 1 =
-// bfloat16 operands.  seed_dev: null, or a device pointer to one int64
-// whose low 32 bits replace `seed`.  row_base: added to every row's draw
-// counter, so a launch on rows [r, r + B) of a batch with row_base = r
-// draws what the whole batch's launch draws for those rows (0: the batch).  Return the CUDA error code of the
+// bfloat16 operands.  T trials: x0 [T, B, D0], x1 [T, B, D1], w0 [T, D0,
+// E], w1 [T, D1, E] with row strides ld_* and trial strides lt_*
+// (elements; unused for T = 1); b0, b1, e_mask [T, E], p0 [T, B], out and
+// choose [T, B, E] contiguous.  seed_dev: null (every trial keyed by
+// `seed`), or a device pointer to T int64 keys whose low 32 bits key trial
+// t.  row_base: added to every row's draw counter, so a launch on rows [r,
+// r + B) of a batch with row_base = r draws what the whole batch's launch
+// draws for those rows (0: the batch).  Return the CUDA error code of the
 // launch (0 = success); a bad argument returns cudaErrorInvalidValue.  They
 // launch on `stream` and do not synchronise.  Every operand's base must be
-// 16-byte aligned and every row stride (ld * element size) a multiple of 16
-// bytes where it has more than one row: TMA reads them.
+// 16-byte aligned and every row and trial stride (times the element size)
+// a multiple of 16 bytes where it has more than one row or trial: TMA reads
+// them.
 //
 // Both take a launch plan: bm, the rows of an output tile (64 or 128), and
 // a cluster width of 1 to 8.  embrace_fused_fwd: `split` of ops/embrace.py::
@@ -784,36 +842,41 @@ int entry(int dtype, const void* x0, long long ld_x0, const void* x1,
 // embrace_fused_fwd_fulle: `cluster` of ops/embrace.py::fulle_plan, the
 // column tiles (128 features each) a cluster spans; it divides their number.
 extern "C" int embrace_fused_fwd(int dtype, const void* x0, long long ld_x0,
-                                 const void* x1, long long ld_x1,
+                                 long long lt_x0, const void* x1,
+                                 long long ld_x1, long long lt_x1,
                                  const void* w0, long long ld_w0,
-                                 const void* w1, long long ld_w1,
+                                 long long lt_w0, const void* w1,
+                                 long long ld_w1, long long lt_w1,
                                  const float* b0, const float* b1,
                                  const float* p0, const float* e_mask,
-                                 float* out, uint8_t* choose, int B, int D0,
-                                 int D1, int E, unsigned int seed,
+                                 float* out, uint8_t* choose, int T, int B,
+                                 int D0, int D1, int E, unsigned int seed,
                                  const long long* seed_dev, int row_base,
                                  void* stream, int bm, int split) {
   const Epilogue ep{b0, b1, p0, e_mask, out, choose, B, E, seed, seed_dev,
                     row_base};
-  return entry<false>(dtype, x0, ld_x0, x1, ld_x1, w0, ld_w0, w1, ld_w1, ep, D0,
-                      D1, stream, bm, split);
+  return entry<false>(dtype, x0, ld_x0, lt_x0, x1, ld_x1, lt_x1, w0, ld_w0,
+                      lt_w0, w1, ld_w1, lt_w1, ep, T, D0, D1, stream, bm, split);
 }
 
 extern "C" int embrace_fused_fwd_fulle(int dtype, const void* x0,
-                                       long long ld_x0, const void* x1,
-                                       long long ld_x1, const void* w0,
-                                       long long ld_w0, const void* w1,
-                                       long long ld_w1, const float* b0,
+                                       long long ld_x0, long long lt_x0,
+                                       const void* x1, long long ld_x1,
+                                       long long lt_x1, const void* w0,
+                                       long long ld_w0, long long lt_w0,
+                                       const void* w1, long long ld_w1,
+                                       long long lt_w1, const float* b0,
                                        const float* b1, const float* p0,
                                        const float* e_mask, float* out,
-                                       uint8_t* choose, int B, int D0, int D1,
-                                       int E, unsigned int seed,
+                                       uint8_t* choose, int T, int B, int D0,
+                                       int D1, int E, unsigned int seed,
                                        const long long* seed_dev, int row_base,
                                        void* stream, int bm, int cluster) {
   const Epilogue ep{b0, b1, p0, e_mask, out, choose, B, E, seed, seed_dev,
                     row_base};
-  return entry<true>(dtype, x0, ld_x0, x1, ld_x1, w0, ld_w0, w1, ld_w1, ep, D0,
-                     D1, stream, bm, cluster);
+  return entry<true>(dtype, x0, ld_x0, lt_x0, x1, ld_x1, lt_x1, w0, ld_w0,
+                     lt_w0, w1, ld_w1, lt_w1, ep, T, D0, D1, stream, bm,
+                     cluster);
 }
 
 // How many clusters of `cluster` CTAs of one plan fit on the card at once
@@ -829,8 +892,8 @@ extern "C" int embrace_fused_fwd_clusters(int fulle, int dtype, int B, int E,
     cudaLaunchAttribute attr[1];
     int clusters = -1;
     const cudaError_t err =
-        fulle ? launch_config<Cfg, true>(&cfg, attr, B, E, cluster, 0)
-              : launch_config<Cfg, false>(&cfg, attr, B, E, cluster, 0);
+        fulle ? launch_config<Cfg, true>(&cfg, attr, 1, B, E, cluster, 0)
+              : launch_config<Cfg, false>(&cfg, attr, 1, B, E, cluster, 0);
     if (err != cudaSuccess) return -1;
     const cudaError_t q =
         fulle ? cudaOccupancyMaxActiveClusters(

@@ -335,6 +335,10 @@ def run_search_fused(spec: ModelSpec,
                            report_fn(idxs[lt], e, v)),
                 train_plans=[train_plans[i] for i in idxs],
                 eval_plans=[eval_plans[i] for i in idxs],
+                # every group's batches run the widest fold's rows, as a
+                # sequential CV's fits do
+                plan_rows=(max(p.idx.shape[1] for p in train_plans),
+                           max(p.idx.shape[1] for p in eval_plans)),
                 init_seeds=np.asarray([init_seeds[i] for i in idxs], np.uint32),
                 run_seeds=np.asarray([run_seeds[i] for i in idxs], np.uint32),
                 device=device, mesh=mesh,

@@ -27,14 +27,18 @@ from __future__ import annotations
 
 import torch
 
+from embracenet_tpu_torch.convert import tree_map
 from embracenet_tpu_torch.models.layers import (
-    batchnorm_apply,
+    Draws,
+    Trials,
     batchnorm_init,
-    conv1d_ncw,
-    dropout as _dropout,
+    batchnorm_trials,
+    conv1d_trials,
+    dropout_trials,
     exact_float32,
     linear,
     maxpool1d,
+    stack_hps,
     torch_uniform_init,
 )
 from embracenet_tpu_torch.ops.convmath import CNN_LENGTHS
@@ -122,25 +126,60 @@ def init(generator: torch.Generator, hp, n_classes: int = 2):
     return params, bn_state
 
 
-def apply(params, bn_state, hp, x, *, train: bool = False, seed: int = 0,
-          row_mask=None, compute_dtype=None, shard=None):
-    """x: one-hot [B, 4, 256] -> (logits [B, 2], new_bn_state); ``shard``:
-    this rank's rows of a data-sharded batch (``parallel.mesh.BatchShard``)."""
-    depth = int(hp["n_layers"])
-    gen = torch.Generator(device=x.device).manual_seed(int(seed))
+def apply_trials(params, bn_state, trials: Trials, x, *, train: bool = False,
+                 row_mask=None, compute_dtype=None, shard=None):
+    """Forward of a population of T trials of one architecture (CNN_LSTM's
+    parameter shapes follow it) -> (logits [T, B, 2], new_bn_state);
+    params and BN state leaves ``[T, ...]``, ``x [B, T*4, 256]``
+    (``cnn.trial_channels``), ``row_mask [T, B]``.  The conv blocks run
+    as grouped convolutions over all trials and the FC layers as batched
+    products; the recurrence is one call of torch's LSTM per trial (a
+    stated divergence: cuDNN takes no trial axis).  ``shard``: this rank's
+    rows of a data-sharded batch (``parallel.mesh.BatchShard``)."""
+    hp, n_trials = trials.hp, len(trials)
+    depth = trials.ints("n_layers")[0]
+    b = x.shape[0]
     new_bn = dict(bn_state)
     h = x
     for i in range(depth):
-        z = conv1d_ncw(h, params[f"conv_w{i}"], compute_dtype) \
-            + params[f"conv_b{i}"][None, :, None]
-        z, new_bn[f"bn{i}"] = batchnorm_apply(z, params[f"bn{i}"],
-                                              bn_state[f"bn{i}"], train, row_mask,
-                                              shard)
-        z = maxpool1d(torch.relu(z))
-        h = _dropout(z, hp["dropout"][i], gen, train, shard)
-    b = h.shape[0]
-    seq = h.contiguous().reshape(b, -1, 4)   # [B, C*L/4, 4] (reference :84)
-    out = lstm_apply(params["lstm"], seq, train)
-    z = linear(out.reshape(b, -1), params["w_fc1"], params["b_fc1"])
+        c_out = params[f"conv_w{i}"].shape[1]
+        z = conv1d_trials(h, params[f"conv_w{i}"], compute_dtype)
+        z = z.view(b, n_trials, c_out, -1) \
+            + params[f"conv_b{i}"][None, :, :, None]
+        z, new_bn[f"bn{i}"] = batchnorm_trials(z, params[f"bn{i}"],
+                                               bn_state[f"bn{i}"], train,
+                                               row_mask, shard)
+        z = maxpool1d(torch.relu(z).view(b, n_trials * c_out, -1))
+        z = z.view(b, n_trials, c_out, -1)
+        if train:
+            u = trials.draws.rand(b, [tuple(z.shape[2:])] * n_trials,
+                                  tuple(z.shape[2:]))
+            z = dropout_trials(z, hp["dropout"][:, i], u.transpose(0, 1),
+                               train, trial_dim=1)
+        h = z.reshape(b, n_trials * c_out, -1)
+    seq = h.view(b, n_trials, -1).transpose(0, 1).reshape(n_trials, b, -1, 4)
+    out = torch.stack([
+        lstm_apply([{k: v[t] for k, v in layer.items()}
+                    for layer in params["lstm"]], seq[t], train)
+        for t in range(n_trials)])            # [T, B, C*L/4, H] (reference :84)
+    z = linear(out.reshape(n_trials, b, -1), params["w_fc1"], params["b_fc1"])
     z = linear(z, params["w_fc2"], params["b_fc2"])
     return linear(z, params["w_head"], params["b_head"]), new_bn
+
+
+def apply(params, bn_state, hp, x, *, train: bool = False, seed: int = 0,
+          row_mask=None, compute_dtype=None, shard=None):
+    """x: one-hot [B, 4, 256] -> (logits [B, 2], new_bn_state):
+    :func:`apply_trials` of a population of one, its draws from a
+    ``torch.Generator`` seeded with ``seed``; ``shard``: this rank's rows
+    of a data-sharded batch (``parallel.mesh.BatchShard``)."""
+    dev = x.device
+    draws = Draws.one(torch.Generator(device=dev).manual_seed(int(seed)),
+                      x.shape[0], dev, shard) if train else None
+    stack = lambda tree: tree_map(lambda a: a[None], tree)  # noqa: E731
+    logits, new_bn = apply_trials(
+        stack(params), stack(bn_state),
+        Trials([hp], stack_hps([hp], dev), None, draws), x, train=train,
+        row_mask=None if row_mask is None else row_mask[None],
+        compute_dtype=compute_dtype, shard=shard)
+    return logits[0], tree_map(lambda a: a[0], new_bn)

@@ -7,8 +7,12 @@ per-layer width menus and a ``Linear(., 2)`` head
 fixed-shape masked supernet: every hidden layer lives in ``H = 256``
 features, widths are column masks, depth is pass-through selection.
 
-Hyperparameters are concrete per trial: ``n_layers`` int, ``widths`` [4],
-``dropout`` [4] (numpy, as ``hpo.space.params_to_hp`` gives them).
+Hyperparameters per trial: ``n_layers`` int, ``widths`` [4], ``dropout``
+[4] (numpy, as ``hpo.space.params_to_hp`` gives them).  A population runs
+as one program (:func:`features_trials`, :func:`apply_trials`: the
+hyperparameters stacked ``[T, ...]`` in a ``layers.Trials``, the layers to
+the deepest trial, depth a pass-through select as in the JAX supernet);
+:func:`features` and :func:`apply` are one trial, a population of one.
 """
 
 from __future__ import annotations
@@ -18,8 +22,12 @@ import torch
 
 from embracenet_tpu_torch.config import FFNN_MAX_LAYERS, FFNN_MAX_WIDTH
 from embracenet_tpu_torch.models.layers import (
-    dropout as _dropout,
+    Draws,
+    Trials,
+    default_generator,
+    dropout_trials,
     linear,
+    stack_hps,
     torch_uniform_init,
     width_mask,
 )
@@ -62,35 +70,79 @@ def init(generator: torch.Generator, hp, in_features: int, n_classes: int = 2,
                           in_features, n_classes, head)
 
 
-def features(params, hp, x, *, train: bool = False, generator=None,
-             compute_dtype=None, max_width: int | None = None, shard=None):
-    """Headless forward -> ([B, W] masked features, [W] output mask).
+def features_trials(params, trials: Trials, x, *, train: bool = False,
+                    compute_dtype=None, max_width: int | None = None):
+    """Headless forward of a population -> ``([T, B, W] masked features,
+    [T, W] output masks)``; params leaves ``[T, ...]``, ``x [T, B, in]``.
 
     ``max_width`` (<= H) is the population's width bucket: weights are
     sliced so the hidden space costs W instead of H (exact: masked
     features beyond any trial's width are zero and live ones a prefix).
-    Layers beyond ``n_layers`` pass their input through, so they are not
-    computed.  ``shard``: this rank's rows of a data-sharded batch
-    (``parallel.mesh.BatchShard``; dropout draws by global row).
+    The layers run to the population's deepest trial; a layer beyond a
+    trial's depth passes its input through (a select, as the JAX supernet)
+    and draws no dropout for it.  Each trial draws from its own generator
+    at its own width (``trials.draws``).
     """
-    n_layers = int(hp["n_layers"])
+    hp, n_host = trials.hp, trials.ints("n_layers")
     W = max_width or H
+    dev, b = x.device, x.shape[1]
+    own = trials.own_shapes("ffnn_max_width", W, H, lambda w: (w,))
     h = out_mask = None
-    for i in range(n_layers):
+    for i in range(max(n_host)):
         inp = x if i == 0 else h
-        w = params[f"w{i}"][:, :W] if i == 0 else params[f"w{i}"][:W, :W]
-        mask = width_mask(W, hp["widths"][i], x.device)
-        z = torch.relu(linear(inp, w, params[f"b{i}"][:W], compute_dtype)) * mask
-        h = _dropout(z, hp["dropout"][i], generator, train, shard) * mask
-        out_mask = mask
+        w = params[f"w{i}"][:, :, :W] if i == 0 else params[f"w{i}"][:, :W, :W]
+        mask = width_mask(W, hp["widths"][:, i], dev)[:, None, :]
+        z = torch.relu(linear(inp, w, params[f"b{i}"][:, :W],
+                              compute_dtype)) * mask
+        if train:
+            live = [i < n for n in n_host]
+            u = trials.draws.rand(b, own, (W,), live)
+            z = dropout_trials(z, hp["dropout"][:, i] * (i < hp["n_layers"]),
+                               u, train)
+        z = z * mask
+        if i == 0:
+            h, out_mask = z, mask[:, 0]
+        else:
+            active = i < hp["n_layers"]
+            h = torch.where(active[:, None, None], z, h)
+            out_mask = torch.where(active[:, None], mask[:, 0], out_mask)
     return h, out_mask
+
+
+def apply_trials(params, trials: Trials, x, *, train: bool = False,
+                 compute_dtype=None, max_width: int | None = None):
+    """Headful forward of a population -> logits ``[T, B, n_classes]``."""
+    h, _ = features_trials(params, trials, x, train=train,
+                           compute_dtype=compute_dtype, max_width=max_width)
+    return linear(h, params["w_head"][:, :h.shape[2], :], params["b_head"],
+                  compute_dtype)
+
+
+def _one(params, hp, x, train, generator, shard):
+    """One trial as a population of one: its params, hp and rows stacked."""
+    draws = Draws.one(default_generator(generator, x.device), x.shape[0],
+                      x.device, shard) if train else None
+    return ({k: v[None] for k, v in params.items()},
+            Trials([hp], stack_hps([hp], x.device), None, draws), x[None])
+
+
+def features(params, hp, x, *, train: bool = False, generator=None,
+             compute_dtype=None, max_width: int | None = None, shard=None):
+    """Headless forward of one trial -> ([B, W] masked features, [W] output
+    mask): :func:`features_trials` of a population of one.  ``shard``: this
+    rank's rows of a data-sharded batch (``parallel.mesh.BatchShard``;
+    dropout draws by global row)."""
+    p, trials, xs = _one(params, hp, x, train, generator, shard)
+    h, out_mask = features_trials(p, trials, xs, train=train,
+                                  compute_dtype=compute_dtype,
+                                  max_width=max_width)
+    return h[0], out_mask[0]
 
 
 def apply(params, hp, x, *, train: bool = False, generator=None,
           compute_dtype=None, max_width: int | None = None, shard=None):
-    """Headful forward -> logits [B, n_classes] (reference ``FFNN``)."""
-    h, _ = features(params, hp, x, train=train, generator=generator,
-                    compute_dtype=compute_dtype, max_width=max_width,
-                    shard=shard)
-    return linear(h, params["w_head"][:h.shape[1], :], params["b_head"],
-                  compute_dtype)
+    """Headful forward of one trial -> logits [B, n_classes] (reference
+    ``FFNN``)."""
+    p, trials, xs = _one(params, hp, x, train, generator, shard)
+    return apply_trials(p, trials, xs, train=train, compute_dtype=compute_dtype,
+                        max_width=max_width)[0]

@@ -7,6 +7,14 @@ maximal kernel, and depth a pass-through selection.  Layouts follow the JAX
 package: ``linear`` is ``x @ w`` with ``w[in, out]``, ``conv1d_ncw`` takes
 ``x[B, C, L]`` and ``w[O, I, K]``.
 
+A population of T trials runs as one program, as ``jax.vmap`` runs it in
+the JAX package: the vmapped axis is written out.  ``linear`` takes
+``x[T, B, in] @ w[T, in, out]`` (a batched product), ``conv1d_trials`` one
+grouped convolution over ``x[B, T*C, L]`` (``groups=T``: the CNN keeps its
+activations as ``[B, T, C, L]``), ``batchnorm_trials`` per-trial moments
+under a ``[T, B]`` row mask, ``width_mask`` / ``kernel_tap_mask`` take
+``[T]`` tensors, and :class:`Draws` gives each trial its own random draws.
+
 Precision contract (as ``layers.py:65-98`` of the JAX package):
 
   * ``compute_dtype=None``: true float32.  Matrix products run at
@@ -24,9 +32,13 @@ sub-blocks use the trial's *actual* fan-in.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from embracenet_tpu_torch.convert import tree_map
 
 
 def as_dtype(compute_dtype) -> torch.dtype | None:
@@ -65,6 +77,41 @@ def exact_float32():
         yield
 
 
+#: set inside :func:`population_invariant`
+_POPULATION_INVARIANT = False
+
+
+@contextlib.contextmanager
+def population_invariant():
+    """Inside, a population of one trial takes its batched products as a
+    population of two does (:func:`trial_matmul`; and on the CPU its
+    convolutions, :func:`conv1d_trials`), so a trial's sums do not depend
+    on how many trials share its program.  A product of one batch runs as
+    one GEMM that may split its K (multithreaded on the CPU, a split-K
+    kernel of cuBLAS on the card), a product of several batches as a
+    batched GEMM that sums every batch alike for any count from 2 up; on
+    the CPU a convolution's weight gradient of one group sums in another
+    order than that of several.  ``engine.fit`` trains inside it; serving
+    does not need it."""
+    global _POPULATION_INVARIANT
+    prev, _POPULATION_INVARIANT = _POPULATION_INVARIANT, True
+    try:
+        yield
+    finally:
+        _POPULATION_INVARIANT = prev
+
+
+def trial_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of operands with a leading trial axis (a batched product);
+    a lone trial inside :func:`population_invariant` computes as one of a
+    population of two (its batch doubled by a broadcast view, the copy's
+    result dropped: the backward pass adds an exact 0)."""
+    if _POPULATION_INVARIANT and a.dim() == 3 and a.shape[0] == 1:
+        return torch.matmul(a.expand(2, *a.shape[1:]),
+                            b.expand(2, *b.shape[1:]))[:1]
+    return torch.matmul(a, b)
+
+
 def torch_uniform_init(generator: torch.Generator, shape, fan_in) -> torch.Tensor:
     """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) — torch Linear/Conv1d default."""
     bound = 1.0 / max(float(fan_in), 1.0) ** 0.5
@@ -74,17 +121,37 @@ def torch_uniform_init(generator: torch.Generator, shape, fan_in) -> torch.Tenso
 
 
 def width_mask(max_width: int, width, device=None) -> torch.Tensor:
-    """[max_width] float mask with ones below ``width``."""
-    return (torch.arange(max_width, device=device) < int(width)).float()
+    """[max_width] float mask with ones below ``width``; for a ``[T]``
+    tensor of widths, ``[T, max_width]``."""
+    idx = torch.arange(max_width, device=device)
+    if isinstance(width, torch.Tensor) and width.dim() == 1:
+        return (idx < width[:, None]).float()
+    return (idx < int(width)).float()
 
 
 def kernel_tap_mask(max_kernel: int, kernel, device=None) -> torch.Tensor:
     """Centered tap mask: a same-padded conv with ``max_kernel`` taps whose
     mask keeps the centered ``kernel`` taps computes exactly a same-padded
-    ``kernel``-tap conv (both paddings are symmetric for odd sizes)."""
+    ``kernel``-tap conv (both paddings are symmetric for odd sizes).  For
+    a ``[T]`` tensor of kernel sizes, ``[T, max_kernel]``."""
     idx = torch.arange(max_kernel, device=device)
+    if isinstance(kernel, torch.Tensor) and kernel.dim() == 1:
+        lo = ((max_kernel - kernel) // 2)[:, None]
+        return ((idx >= lo) & (idx < lo + kernel[:, None])).float()
     lo = (max_kernel - int(kernel)) // 2
     return ((idx >= lo) & (idx < lo + int(kernel))).float()
+
+
+def default_generator(generator, device) -> torch.Generator:
+    """``generator``, or where it is None the device's default generator
+    (what ``torch.rand`` draws from without one)."""
+    if generator is not None:
+        return generator
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.default_generators[
+            device.index if device.index is not None else torch.cuda.current_device()]
+    return torch.default_generator
 
 
 def rand(shape, generator: torch.Generator | None, device,
@@ -96,6 +163,132 @@ def rand(shape, generator: torch.Generator | None, device,
     if shard is None:
         return torch.rand(shape, generator=generator, device=device)
     return shard.rand(shape, generator, device)
+
+
+class Draws:
+    """The random draws of one step of a population of T trials.
+
+    Trial t draws from its own generator ``gens[t]`` (None: it draws
+    nothing in this step, as in the padded batches of a shorter plan) at
+    its own shape: ``rows[t]`` batch rows and the trailing shape a fit of
+    it alone has (its own width bucket), so that it draws exactly what that
+    fit draws.  For a ``shard`` of the batch the draw is the whole batch's
+    cut to the shard's rows (:func:`rand`).  Each draw is one
+    ``torch.rand`` per drawing trial: a draw site costs T small launches
+    (and one to assemble them)."""
+
+    def __init__(self, gens, rows, device, shard=None):
+        self.gens, self.rows = list(gens), [int(r) for r in rows]
+        self.device, self.shard = device, shard
+
+    @classmethod
+    def one(cls, generator, rows: int, device, shard=None) -> "Draws":
+        """One trial's draws from ``generator`` for a batch of ``rows`` rows
+        (this shard's; the whole batch is ``shard.total`` of them)."""
+        return cls([generator], [shard.total if shard is not None else rows],
+                   device, shard)
+
+    def __len__(self):
+        return len(self.gens)
+
+    def _trial_shard(self, t):
+        return None if self.shard is None else self.shard._replace(
+            total=self.rows[t])
+
+    def rand(self, b: int, own, out, live=None) -> torch.Tensor:
+        """``[T, b, *out]`` uniforms: trial t's draw of ``(rows[t],
+        *own[t])`` values (its rows of this step; ``own[t]`` fits in
+        ``out``) in the leading corner, zeros elsewhere and for a trial that
+        does not draw (``live[t]`` False, or no generator)."""
+        out = tuple(out)
+        draws = []
+        for t, gen in enumerate(self.gens):
+            if gen is None or (live is not None and not live[t]):
+                draws.append(None)
+                continue
+            # without a shard, the trial's own rows; with one, this rank's
+            # b rows of the trial's whole batch (zeros past it)
+            rows = b if self.shard is not None else self.rows[t]
+            draws.append(rand((rows,) + tuple(own[t]), gen, self.device,
+                              self._trial_shard(t)))
+        if all(d is not None and d.shape == (b,) + out for d in draws):
+            return torch.stack(draws)
+        u = torch.zeros((len(self), b) + out, device=self.device)
+        for t, d in enumerate(draws):
+            if d is not None:
+                u[(t,) + tuple(slice(0, n) for n in d.shape)] = d
+        return u
+
+    def scalar(self) -> torch.Tensor:
+        """``[T]``: one uniform per drawing trial (0 for the others)."""
+        return torch.stack([
+            torch.rand((), generator=g, device=self.device) if g is not None
+            else torch.zeros((), device=self.device) for g in self.gens])
+
+    def seeds(self) -> torch.Tensor:
+        """``[T]`` int64 kernel keys, one ``randint`` per drawing trial (as
+        the JAX package draws the fused kernel's seed from its key)."""
+        return torch.stack([
+            torch.randint(0, 2 ** 31 - 1, (), generator=g, device=self.device)
+            if g is not None else torch.zeros((), dtype=torch.int64,
+                                              device=self.device)
+            for g in self.gens])
+
+
+def stack_hps(hp_list, device=None) -> dict:
+    """Per-trial concrete hyperparameter dicts -> one dict of ``[T, ...]``
+    tensors on ``device`` (the JAX engine's ``stack_trials(hp_list)``, the
+    form a vmapped ``apply`` reads them in)."""
+    return tree_map(lambda *xs: torch.as_tensor(
+        np.stack([np.asarray(x) for x in xs]), device=device), *hp_list)
+
+
+@dataclasses.dataclass(frozen=True)
+class Trials:
+    """A population's hyperparameters as one program reads them: ``hp``
+    stacked ``[T, ...]`` on the device (:func:`stack_hps`), ``hps`` the
+    same per trial on the host (the static decisions: how deep the
+    population runs, which trials draw at a layer), ``own`` the statics a
+    fit of each trial alone has (its draw shapes; None: the population's),
+    and ``draws`` the step's :class:`Draws` (None outside training)."""
+    hps: list
+    hp: dict
+    own: list | None = None
+    draws: Draws | None = None
+
+    def __len__(self):
+        return len(self.hps)
+
+    def sub(self, key: str) -> "Trials":
+        """The trials' sub-dict ``key`` (a branch's hyperparameters)."""
+        return dataclasses.replace(self, hps=[h[key] for h in self.hps],
+                                   hp=self.hp[key])
+
+    def ints(self, key: str) -> list:
+        return [int(h[key]) for h in self.hps]
+
+    def own_shapes(self, key: str, pop, full, shape) -> list:
+        """Per trial, ``shape(v)`` of the width its fit alone draws at: its
+        own static ``key``, ``full`` (the supernet's) where that fit has
+        none, and ``pop`` for all trials where ``own`` is None."""
+        if self.own is None:
+            return [shape(pop)] * len(self)
+        return [shape(o.get(key) or full) for o in self.own]
+
+
+def dropout_trials(x: torch.Tensor, rate: torch.Tensor, u, train: bool,
+                   trial_dim: int = 0) -> torch.Tensor:
+    """Inverted dropout of a population's ``x`` (trial axis at
+    ``trial_dim``) with per-trial ``rate`` ``[T]`` and uniforms ``u``
+    (:meth:`Draws.rand`, laid out as ``x``): the JAX ``dropout`` under
+    ``vmap``, ``keep = 1 - rate`` in float32."""
+    if not train:
+        return x
+    shape = [1] * x.dim()
+    shape[trial_dim] = -1
+    keep = (1.0 - rate.float()).reshape(shape)
+    return torch.where(u < keep, x / torch.clamp(keep, min=1e-8),
+                       torch.zeros_like(x))
 
 
 def dropout(x: torch.Tensor, rate, generator: torch.Generator | None,
@@ -111,7 +304,9 @@ def dropout(x: torch.Tensor, rate, generator: torch.Generator | None,
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            compute_dtype=None) -> torch.Tensor:
-    """y = x @ w + b with the precision contract of the module docstring.
+    """y = x @ w + b with the precision contract of the module docstring;
+    for a population, ``x[T, B, in] @ w[T, in, out] + b[T, out]`` (one
+    batched product).
 
     In bf16 mode the operands are rounded to bf16 and the product is taken
     in float32: a bf16 x bf16 product is exact in float32, so this is bf16
@@ -124,18 +319,36 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     with _highest_matmul_precision():
         # w.to(x.dtype): bf16 live weights (TrainConfig.param_dtype) promote
         # to float32, as JAX promotes a mixed product
-        return torch.matmul(x, w.to(x.dtype)) + b
+        y = trial_matmul(x, w.to(x.dtype))
+    return y + (b[:, None, :] if w.dim() == 3 else b)
 
 
 def conv1d_ncw(x: torch.Tensor, w: torch.Tensor, compute_dtype=None) -> torch.Tensor:
-    """Same-padded 1-D conv, NCW layout (x: [B,C,L], w: [O,I,K])."""
+    """Same-padded 1-D conv, NCW layout (x: [B,C,L], w: [O,I,K]): one trial
+    of :func:`conv1d_trials`."""
+    return conv1d_trials(x, w[None], compute_dtype)
+
+
+def conv1d_trials(x: torch.Tensor, w: torch.Tensor,
+                  compute_dtype=None) -> torch.Tensor:
+    """:func:`conv1d_ncw` of every trial at once: ``x[B, T*C, L]`` (trial
+    t's channels at ``[t*C, (t+1)*C)``) and ``w[T, O, C, K]`` -> ``[B,
+    T*O, L]``, one grouped convolution (``groups=T``) under the same
+    precision contract."""
+    t, o = w.shape[0], w.shape[1]
+    if _POPULATION_INVARIANT and t == 1 and x.device.type == "cpu":
+        # a lone trial as one of two groups: the CPU's weight gradient of
+        # one group sums in another order than that of several
+        return conv1d_trials(x.repeat(1, 2, 1), w.expand(2, *w.shape[1:]),
+                             compute_dtype)[:, :o]
+    w = w.reshape((t * o,) + tuple(w.shape[2:]))
     pad = (w.shape[-1] - 1) // 2
     dt = as_dtype(compute_dtype)
     if dt is not None:
-        return F.conv1d(x.to(dt), w.to(dt), padding=pad).float()
+        return F.conv1d(x.to(dt), w.to(dt), padding=pad, groups=t).float()
     with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
                                     allow_tf32=False):
-        return F.conv1d(x, w.to(x.dtype), padding=pad)
+        return F.conv1d(x, w.to(x.dtype), padding=pad, groups=t)
 
 
 def maxpool1d(x: torch.Tensor, kernel: int = 10, stride: int = 2) -> torch.Tensor:
@@ -164,30 +377,45 @@ def batchnorm_apply(x, params, state, train: bool, row_mask=None, shard=None):
     padded static batch normalises identically to a ragged one.  For a
     ``shard`` of a data-sharded batch the moments are sums over the data
     axis (differentiable all-reduces, as SyncBatchNorm's).  Running stats
-    use the unbiased variance, torch-style.  Returns (y, new_state).
+    use the unbiased variance, torch-style.  Returns (y, new_state).  One
+    trial of :func:`batchnorm_trials`.
     """
-    scale = params["scale"][None, :, None]
-    bias = params["bias"][None, :, None]
+    y, new = batchnorm_trials(
+        x[:, None], {k: v[None] for k, v in params.items()},
+        {k: v[None] for k, v in state.items()}, train,
+        None if row_mask is None else row_mask[None], shard)
+    return y[:, 0], {k: v[0] for k, v in new.items()}
+
+
+def batchnorm_trials(x, params, state, train: bool, row_mask=None,
+                     shard=None):
+    """BatchNorm1d of every trial at once over ``x[B, T, C, L]`` (stats
+    over B and L per trial and channel); ``params`` / ``state`` leaves are
+    ``[T, C]`` and ``row_mask`` ``[T, B]``.  Per trial, what
+    :func:`batchnorm_apply` computes; under a ``shard`` each moment is one
+    sum over the data axis for all trials.  Returns (y, new_state)."""
+    scale = params["scale"][None, :, :, None]
+    bias = params["bias"][None, :, :, None]
     if not train:
         mean, var = state["mean"], state["var"]
         inv = torch.rsqrt(var + BN_EPS)
-        y = (x - mean[None, :, None]) * inv[None, :, None]
+        y = (x - mean[None, :, :, None]) * inv[None, :, :, None]
         return y * scale + bias, state
 
     if row_mask is None:
-        row_mask = torch.ones(x.shape[0], device=x.device)
-    m = row_mask.float()[:, None, None]
-    sum_x, count = (x * m).sum(dim=(0, 2)), m.sum()
+        row_mask = torch.ones((x.shape[1], x.shape[0]), device=x.device)
+    m = row_mask.float().t()[:, :, None, None]                  # [B, T, 1, 1]
+    sum_x, count = (x * m).sum(dim=(0, 3)), m.sum(dim=(0, 2, 3))
     if shard is not None:
         sum_x, count = shard.sum(sum_x, count)
-    n = torch.clamp(count * x.shape[-1], min=1.0)
+    n = torch.clamp(count * x.shape[-1], min=1.0)[:, None]      # [T, 1]
     mean = sum_x / n
-    sq = (((x - mean[None, :, None]) ** 2) * m).sum(dim=(0, 2))
+    sq = (((x - mean[None, :, :, None]) ** 2) * m).sum(dim=(0, 3))
     if shard is not None:
         sq = shard.sum(sq)
     var = sq / n
     inv = torch.rsqrt(var + BN_EPS)
-    y = (x - mean[None, :, None]) * inv[None, :, None]
+    y = (x - mean[None, :, :, None]) * inv[None, :, :, None]
     unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
     new_state = {
         "mean": (1 - BN_MOMENTUM) * state["mean"] + BN_MOMENTUM * mean,

@@ -5,7 +5,9 @@ The checkpoint's ``meta["model_params"]`` carries the flat hyperparameters;
 :class:`ReloadedModel` applies the matching supernet in eval mode and
 returns class probabilities (or raw logits).
 
-The model lives on one explicit device (the card by default).  For
+The model lives on one explicit device (the card by default) and runs as
+a population of one trial (``spec.apply_trials``; its hyperparameters are
+stacked on the device once, so a request copies nothing but its data).  For
 EmbraceNetMultimodal, ``fused_embrace=True`` (the default) runs docking +
 embracement in the fused CUDA kernel; ``fused_embrace=False`` keeps the
 unfused path, the JAX package's serving default.
@@ -26,8 +28,9 @@ import torch
 from torch import nn
 
 from embracenet_tpu_torch import resolve_device
-from embracenet_tpu_torch.convert import tree_to_torch
+from embracenet_tpu_torch.convert import tree_map, tree_to_torch
 from embracenet_tpu_torch.hpo import space as space_mod
+from embracenet_tpu_torch.models.layers import Trials, stack_hps
 from embracenet_tpu_torch.training.checkpoint import (_LIST_MARK, load_checkpoint,
                                                      restore_lists)
 from embracenet_tpu_torch.training.modelspec import get_spec
@@ -64,6 +67,7 @@ class ReloadedModel(nn.Module):
             self.statics["fused_embrace"] = bool(fused_embrace)
         self.compute_dtype = compute_dtype
         self.seed = int(seed)
+        self.trials = Trials([self.hp], stack_hps([self.hp], self.device))
         # params and BN state as buffers ("params__ffnn__w0", ...), so
         # state_dict / .to() see them; the nested trees are rebuilt on use
         for group, tree in (("params", params), ("bn_state", bn_state or {})):
@@ -108,14 +112,17 @@ class ReloadedModel(nn.Module):
         n = len(np.asarray(data[key]))
         n_pad = -(-max(n, 1) // self.BATCH) * self.BATCH
         dev = self._device_data(data, n_pad)
-        params, bn_state = self.params, self.bn_state
+        # a population of one: the trial axis is a view
+        params, bn_state = (tree_map(lambda a: a[None], t)
+                            for t in (self.params, self.bn_state))
         chunks = []
         for lo in range(0, n_pad, self.BATCH):
             inputs = {k: v[lo:lo + self.BATCH] for k, v in dev.items()}
-            out, _ = self.spec.apply(params, bn_state, self.hp, inputs, False,
-                                     self.seed, None, self.compute_dtype,
-                                     self.statics)
-            chunks.append(out)
+            out, _ = self.spec.apply_trials(params, bn_state, self.trials,
+                                            inputs, False, None,
+                                            self.compute_dtype, self.statics,
+                                            seed=self.seed)
+            chunks.append(out[0])
         raw = torch.cat(chunks)[:n].float()
         if not logits:
             raw = torch.softmax(raw, dim=-1)

@@ -32,15 +32,25 @@ activations never reach device memory.
 * ``LAUNCHES`` and ``LAUNCHES_FULLE`` count kernel launches, so a run can
   show that its path went through the kernel.
 
+Both take a population: with a leading trial axis (x0 ``[T, B, D0]``, x1
+``[T, B, D1]``, w0 ``[T, D0, E]``, w1 ``[T, D1, E]``, b0, b1, e_mask
+``[T, E]``, p0 ``[T, B]``, one seed per trial) one launch computes every
+trial, as Pallas' batching rule runs ``_kernel`` under the JAX engine's
+``jax.vmap``: the trial index is part of the kernel's grid, and trial t
+draws from its own seed, so its ``choose`` is bit for bit that of a launch
+on its operands alone.  Without the axis (2-D operands) a call is one
+trial, as before.
+
 Stated divergences from the TPU kernels: the draw is Philox4x32-10 keyed by
 ``seed`` with counter (row, feature), not the TPU's PRNG (same
 distribution, different stream); and the operands keep the dtype the caller
 gives (float32 or bfloat16, following ``compute_dtype``) where the TPU
 wrapper always cast them to bfloat16.
 
-``seed`` is an int or a 0-d int64 tensor on the operands' device; the
-kernels read a tensor seed from device memory, so a seed drawn on the card
-never waits for the host.  ``row_base`` (0 by default) offsets the row of
+``seed`` is an int or a 0-d int64 tensor on the operands' device (every
+trial keyed alike), or with a trial axis a ``[T]`` int64 tensor of keys;
+the kernels read a tensor seed from device memory, so a seed drawn on the
+card never waits for the host.  ``row_base`` (0 by default) offsets the row of
 every draw: a launch on rows ``[r, r + b)`` of a batch, with ``row_base =
 r``, draws Philox (seed, r + i, c) for its row i, as the launch on the whole
 batch draws for that row (a data-sharded fit's shard, ``parallel/mesh.py``).
@@ -131,9 +141,11 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        # ..., B, D0, D1, E, seed, seed_dev, row_base, stream
-        common = [i32, p, i64, p, i64, p, i64, p, i64, p, p, p, p, p, p,
-                  i32, i32, i32, i32, ctypes.c_uint, p, i32, p]
+        # dtype, (x0, x1, w0, w1: pointer, row stride, trial stride), b0,
+        # b1, p0, e_mask, out, choose, T, B, D0, D1, E, seed, seed_dev,
+        # row_base, stream
+        common = [i32] + [p, i64, i64] * 4 + [p] * 6 + [i32] * 5 + [
+            ctypes.c_uint, p, i32, p]
         lib.embrace_fused_fwd.argtypes = common + [i32, i32]   # bm, split
         lib.embrace_fused_fwd_fulle.argtypes = common + [i32, i32]   # bm, cluster
         lib.embrace_fused_fwd_clusters.argtypes = [i32] * 6
@@ -147,24 +159,31 @@ def _load():
 def fused_embrace_reference(x0, x1, w0, b0, w1, b1, p0, e_mask, u):
     """Plain PyTorch version: ``(out, choose)`` with ``out = where(u <
     p0[:, None], relu(x0 @ w0 + b0), relu(x1 @ w1 + b1)) * e_mask`` and
-    ``choose`` as uint8.  Operands are upcast to float32 (bf16 operands
-    are exact there), products taken at full float32 precision."""
+    ``choose`` as uint8, per trial where the operands have a trial axis
+    (``u [T, B, E]``).  Operands are upcast to float32 (bf16 operands are
+    exact there), products taken at full float32 precision."""
     from embracenet_tpu_torch.models.layers import linear
 
     d0 = torch.relu(linear(x0.float(), w0.float(), b0))
     d1 = torch.relu(linear(x1.float(), w1.float(), b1))
-    pick0 = u < p0[:, None]
-    return torch.where(pick0, d0, d1) * e_mask, pick0.to(torch.uint8)
+    pick0 = u < p0[..., None]
+    return (torch.where(pick0, d0, d1) * e_mask.unsqueeze(-2),
+            pick0.to(torch.uint8))
 
 
 def _check(x0, x1, w0, b0, w1, b1, p0, e_mask, seed, row_base=0):
+    """Raises on operands the entries do not take; all have a leading
+    trial axis of T here."""
     dev = x0.device
-    b, d0 = x0.shape
-    d1, e = x1.shape[1], w0.shape[1]
-    for name, t, shape in (("x0", x0, (b, d0)), ("x1", x1, (b, d1)),
-                           ("w0", w0, (d0, e)), ("w1", w1, (d1, e)),
-                           ("b0", b0, (e,)), ("b1", b1, (e,)),
-                           ("p0", p0, (b,)), ("e_mask", e_mask, (e,))):
+    if x0.dim() != 3:
+        raise ValueError(f"fused_embrace: x0 must be [B, D0] or [T, B, D0], "
+                         f"got {tuple(x0.shape)}")
+    n, b, d0 = x0.shape
+    d1, e = x1.shape[-1], w0.shape[-1]
+    for name, t, shape in (("x0", x0, (n, b, d0)), ("x1", x1, (n, b, d1)),
+                           ("w0", w0, (n, d0, e)), ("w1", w1, (n, d1, e)),
+                           ("b0", b0, (n, e)), ("b1", b1, (n, e)),
+                           ("p0", p0, (n, b)), ("e_mask", e_mask, (n, e))):
         if tuple(t.shape) != shape:
             raise ValueError(f"fused_embrace: {name} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
@@ -184,16 +203,17 @@ def _check(x0, x1, w0, b0, w1, b1, p0, e_mask, seed, row_base=0):
         if not t.is_contiguous():
             raise ValueError(f"fused_embrace: {name} must be contiguous")
     for name, t in (("x0", x0), ("x1", x1), ("w0", w0), ("w1", w1)):
-        if t.shape[1] > 1 and t.stride(1) != 1:
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
             raise ValueError(f"fused_embrace: {name} needs unit stride "
                              f"along its last axis")
     if not 0 <= row_base <= 2 ** 31 - 1 - b:
         raise ValueError(f"fused_embrace: row_base {row_base} with {b} rows "
                          f"leaves the draw's 31-bit row counter")
     if isinstance(seed, torch.Tensor):
-        if seed.shape != () or seed.dtype != torch.int64 or seed.device != dev:
-            raise ValueError(f"fused_embrace: a tensor seed must be a 0-d "
-                             f"int64 on {dev}, got {seed.dtype} "
+        if seed.shape not in ((), (n,)) or seed.dtype != torch.int64 \
+                or seed.device != dev:
+            raise ValueError(f"fused_embrace: a tensor seed must be a 0-d or "
+                             f"[{n}] int64 on {dev}, got {seed.dtype} "
                              f"{tuple(seed.shape)} on {seed.device}")
 
 
@@ -222,7 +242,11 @@ class LaunchPlan(NamedTuple):
 
 
 def launch_plan(B, E, D0, D1, dtype, sm_count, clusters=None) -> LaunchPlan:
-    """The tiled kernel's plan for a call on a card with ``sm_count`` SMs.
+    """The tiled kernel's plan for one trial's call on a card with
+    ``sm_count`` SMs; a launch of T trials runs T times its tiles (the grid
+    then takes several waves).  The plan, and so the order in which a
+    tile's K is summed, does not depend on T: a trial's ``out`` is bit for
+    bit the same in a population of any size.
 
     Tiles have 128 rows where 128-row tiles alone fill the SMs (the serving
     batch of 4096), else 64.  ``split`` is the largest, at most
@@ -231,7 +255,8 @@ def launch_plan(B, E, D0, D1, dtype, sm_count, clusters=None) -> LaunchPlan:
     share one GPC, so ``clusters(bm, split)`` says how many clusters of that
     size the card holds at once (:func:`clusters_at_once` on the card;
     ``sm_count // split`` where it is not given).  With that default, B =
-    100 and B = 200 at E = 1024 split 8 and 4 ways: 128 CTAs."""
+    100 and B = 200 at E = 1024 split 8 and 4 ways: 128 CTAs (1,024 for a
+    population of 8)."""
     fits = clusters or (lambda bm, split: sm_count // split)
     col_tiles = -(-E // TILE_N)
     bm = _tile_rows(B, col_tiles, sm_count)
@@ -244,8 +269,10 @@ def launch_plan(B, E, D0, D1, dtype, sm_count, clusters=None) -> LaunchPlan:
 
 
 def _tile_rows(B, col_tiles, sm_count) -> int:
-    """Output tile rows of both kernels: 128 where 128-row tiles alone fill
-    the SMs (the serving batch of 4096), else 64."""
+    """Output tile rows of both kernels: 128 where one trial's 128-row
+    tiles alone fill the SMs (the serving batch of 4096), else 64 (the
+    float32 64-row tile sums K in two groups, so a trial's rows depend on
+    its own shape only)."""
     return 128 if -(-B // 128) * col_tiles >= sm_count else 64
 
 
@@ -270,8 +297,12 @@ class FullEPlan(NamedTuple):
         return self.ctas // self.cluster
 
 
-def fulle_plan(B, E, D0, D1, dtype, sm_count, clusters=None) -> FullEPlan:
-    """The full-E kernel's plan for a call on a card with ``sm_count`` SMs.
+def fulle_plan(B, E, D0, D1, dtype, sm_count, clusters=None,
+               T=1) -> FullEPlan:
+    """The full-E kernel's plan for a call of ``T`` trials on a card with
+    ``sm_count`` SMs (``row_tiles`` counts every trial's; the tile rows are
+    one trial's, so its sums do not depend on T, nor on the cluster, which
+    splits no K).
 
     Tile rows as the tiled kernel's (:func:`launch_plan`), so both kernels
     run the same tiles and K order wherever that one splits no K.  The
@@ -286,7 +317,7 @@ def fulle_plan(B, E, D0, D1, dtype, sm_count, clusters=None) -> FullEPlan:
     fits = clusters or (lambda bm, c: sm_count // c)
     col_tiles = -(-E // TILE_N)
     bm = _tile_rows(B, col_tiles, sm_count)
-    row_tiles = -(-B // bm)
+    row_tiles = T * -(-B // bm)
 
     def waves(c):
         at_once = fits(bm, c)
@@ -333,43 +364,49 @@ def card_plan(B, E, D0, D1, dtype, index) -> LaunchPlan:
 
 
 @lru_cache(maxsize=None)
-def card_fulle_plan(B, E, D0, D1, dtype, index) -> FullEPlan:
+def card_fulle_plan(B, E, D0, D1, dtype, index, T=1) -> FullEPlan:
     """:func:`fulle_plan` for CUDA device ``index``, from its SM count and
     its occupancy query for the full-E kernel; the wrapper's plan."""
     return fulle_plan(
         B, E, D0, D1, dtype,
         torch.cuda.get_device_properties(index).multi_processor_count,
-        lambda bm, c: clusters_at_once(dtype, bm, c, index, fulle=True))
+        lambda bm, c: clusters_at_once(dtype, bm, c, index, fulle=True), T)
 
 
 def tma_problem(shape, strides, itemsize, address):
-    """Why TMA cannot read a 2-D operand with this ``shape``, ``strides``
-    (elements), element size and base address; ``None`` where it can.  TMA
-    needs unit stride along the last axis, a 16-byte aligned base, and, for
-    more than one row, a row stride that covers the row and is a multiple
-    of 16 bytes."""
-    rows, cols = shape
-    if cols > 1 and strides[1] != 1:
+    """Why TMA cannot read an operand with this ``shape`` (``[rows, cols]``
+    or ``[T, rows, cols]``), ``strides`` (elements), element size and base
+    address; ``None`` where it can.  TMA needs unit stride along the last
+    axis, a 16-byte aligned base, for more than one row a row stride that
+    covers the row and is a multiple of 16 bytes, and for more than one
+    trial a trial stride that is a multiple of 16 bytes."""
+    rows, cols = shape[-2:]
+    if cols > 1 and strides[-1] != 1:
         return "needs unit stride along its last axis"
     if address % 16:
         return f"base address {address:#x} is not 16-byte aligned"
-    if rows > 1 and (strides[0] * itemsize % 16 or strides[0] < cols):
-        return (f"row stride of {strides[0] * itemsize} bytes is not a "
+    if rows > 1 and (strides[-2] * itemsize % 16 or strides[-2] < cols):
+        return (f"row stride of {strides[-2] * itemsize} bytes is not a "
                 f"multiple of 16 bytes covering its {cols} columns")
+    if len(shape) == 3 and shape[0] > 1 and strides[0] * itemsize % 16:
+        return (f"trial stride of {strides[0] * itemsize} bytes is not a "
+                f"multiple of 16 bytes")
     return None
 
 
 def tma_x0(x0):
-    """``x0`` as TMA can read it: itself, or where its row stride is not a
-    multiple of 16 bytes (D0 = 4 with bf16 operands) a copy zero-padded to
-    the next multiple.  The kernel reads D0 columns of it and w0's D0 rows,
-    so the padding never enters a sum."""
+    """``x0`` (``[B, D0]`` or ``[T, B, D0]``) as TMA can read it: itself,
+    or where its row or trial stride is not a multiple of 16 bytes (D0 = 4
+    with bf16 operands) a copy zero-padded to the next multiple.  The kernel reads D0
+    columns of it and w0's D0 rows, so the padding never enters a sum."""
     per = 16 // x0.element_size()
-    if x0.shape[0] <= 1 or x0.stride(0) % per == 0:
+    x = x0 if x0.dim() == 3 else x0[None]
+    n, b = x.shape[:2]
+    if (b <= 1 or x.stride(1) % per == 0) and (n <= 1 or x.stride(0) % per == 0):
         return x0
-    padded = x0.new_zeros(x0.shape[0], -(-x0.shape[1] // per) * per)
-    padded[:, :x0.shape[1]] = x0
-    return padded
+    padded = x.new_zeros(n, b, -(-x.shape[2] // per) * per)
+    padded[..., :x.shape[2]] = x
+    return padded if x0.dim() == 3 else padded[0]
 
 
 def _check_tma(x0, x1, w0, w1):
@@ -381,43 +418,65 @@ def _check_tma(x0, x1, w0, w1):
 
 
 def _launch_args(entry: str, x0, x1, w0, w1):
-    """``(x0, plan)`` for a launch of kernel ``entry``: x0 as TMA reads it
+    """``(x0, plan)`` for a launch of kernel ``entry`` on operands with
+    (``[T, ...]``) or without a trial axis: x0 as TMA reads it
     (:func:`tma_x0`) and the plan arguments, ``(bm, split)`` of
     :func:`card_plan` or ``(bm, cluster)`` of :func:`card_fulle_plan`.
     Raises ``ValueError`` for an operand TMA cannot read, before anything
     asks the card."""
     x0 = tma_x0(x0)
     _check_tma(x0, x1, w0, w1)
-    shape = (x0.shape[0], w0.shape[1], w0.shape[0], x1.shape[1], x0.dtype,
+    n = x0.shape[0] if x0.dim() == 3 else 1
+    shape = (x0.shape[-2], w0.shape[-1], w0.shape[-2], x1.shape[-1], x0.dtype,
              x0.device.index)
     if entry == "embrace_fused_fwd":
         p = card_plan(*shape)
         return x0, (p.bm, p.split)
-    p = card_fulle_plan(*shape)
+    p = card_fulle_plan(*shape, *((n,) if n > 1 else ()))
     return x0, (p.bm, p.cluster)
 
 
 def _forward(entry: str, x0, x1, w0, b0, w1, b1, p0, e_mask, seed,
              row_base=0):
-    """``(out, choose)`` from the kernel ``entry`` on a CUDA tensor, or from
-    the plain version on a CPU tensor: rows ``[row_base, row_base + B)`` of
-    the uniforms ``torch.Generator().manual_seed(seed)`` draws for a batch
+    """``(out, choose)`` from the kernel ``entry`` on CUDA tensors, or from
+    the plain version on CPU tensors; a call without a trial axis is one
+    trial.  On the CPU trial t's uniforms are rows ``[row_base, row_base +
+    B)`` of what ``torch.Generator().manual_seed(seed_t)`` draws for a batch
     of ``row_base + B`` rows (the CPU generator fills rows in order, so
-    they are the whole batch's rows)."""
+    they are the whole batch's rows) at the trial's live width, up to the
+    last column its ``e_mask`` keeps (zeros past it, where ``out`` is 0):
+    a trial draws the same in any width bucket, as the kernel's Philox
+    draw, keyed by (row, column), does by construction."""
+    if x0.dim() == 2:
+        if isinstance(seed, torch.Tensor) and seed.dim() != 0:
+            raise ValueError(f"fused_embrace: without a trial axis a tensor "
+                             f"seed must be a 0-d int64, got "
+                             f"{tuple(seed.shape)}")
+        out, choose = _forward(entry, x0[None], x1[None], w0[None], b0[None],
+                               w1[None], b1[None], p0[None], e_mask[None],
+                               seed, row_base)
+        return out[0], choose[0]
     row_base = int(row_base)
     _check(x0, x1, w0, b0, w1, b1, p0, e_mask, seed, row_base)
-    b, e = x0.shape[0], w0.shape[1]
+    n, b, e = x0.shape[0], x0.shape[1], w0.shape[2]
     if x0.device.type == "cpu":
-        gen = torch.Generator().manual_seed(int(seed))
-        u = torch.rand((row_base + b, e), generator=gen)[row_base:]
+        seeds = (seed.reshape(-1).expand(n).tolist()
+                 if isinstance(seed, torch.Tensor) else [seed] * n)
+        cols = torch.arange(1, e + 1)
+        live = ((e_mask != 0) * cols).amax(-1).tolist()   # last kept column + 1
+        u = torch.zeros((n, b, e))
+        for t, (s, w) in enumerate(zip(seeds, live)):
+            u[t, :, :w] = torch.rand((row_base + b, w), generator=torch
+                                     .Generator().manual_seed(int(s)))[row_base:]
         return fused_embrace_reference(x0, x1, w0, b0, w1, b1, p0, e_mask, u)
     if x0.device.type != "cuda":
         raise ValueError(f"fused_embrace: unsupported device {x0.device}")
     lib = _load()
     x0, plan = _launch_args(entry, x0, x1, w0, w1)
-    out = torch.empty((b, e), dtype=torch.float32, device=x0.device)
-    choose = torch.empty((b, e), dtype=torch.uint8, device=x0.device)
+    out = torch.empty((n, b, e), dtype=torch.float32, device=x0.device)
+    choose = torch.empty((n, b, e), dtype=torch.uint8, device=x0.device)
     if isinstance(seed, torch.Tensor):
+        seed = seed.reshape(-1).expand(n).contiguous()
         seed_val, seed_ptr = 0, seed.data_ptr()
     else:
         seed_val, seed_ptr = int(seed) & 0xFFFFFFFF, None
@@ -425,11 +484,11 @@ def _forward(entry: str, x0, x1, w0, b0, w1, b1, p0, e_mask, seed,
         stream = torch.cuda.current_stream(x0.device).cuda_stream
         err = getattr(lib, entry)(
             _DTYPE_CODE[x0.dtype],
-            x0.data_ptr(), x0.stride(0), x1.data_ptr(), x1.stride(0),
-            w0.data_ptr(), w0.stride(0), w1.data_ptr(), w1.stride(0),
+            *(v for t in (x0, x1, w0, w1)
+              for v in (t.data_ptr(), t.stride(1), t.stride(0))),
             b0.data_ptr(), b1.data_ptr(), p0.data_ptr(), e_mask.data_ptr(),
             out.data_ptr(), choose.data_ptr(),
-            b, w0.shape[0], x1.shape[1], e, seed_val, seed_ptr, row_base,
+            n, b, w0.shape[1], x1.shape[2], e, seed_val, seed_ptr, row_base,
             stream, *plan)
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed with error {err} "
@@ -439,21 +498,25 @@ def _forward(entry: str, x0, x1, w0, b0, w1, b1, p0, e_mask, seed,
 
 def embrace_backward(g, x0, x1, w0, w1, e_mask, choose, out):
     """The JAX ``_bwd`` (``ops/pallas/embrace.py:251-271``) term for term,
-    in float32 from the saved operands: ``(dx0, dx1, dw0, db0, dw1, db1)``.
+    in float32 from the saved operands: ``(dx0, dx1, dw0, db0, dw1, db1)``,
+    per trial where the operands have a trial axis.
     ``out > 0`` is ReLU's derivative on the selected branch."""
-    from embracenet_tpu_torch.models.layers import _highest_matmul_precision
+    from embracenet_tpu_torch.models.layers import (_highest_matmul_precision,
+                                                    trial_matmul as mm)
 
-    g = g.float() * e_mask[None, :]
+    g = g.float() * e_mask.unsqueeze(-2)
     live = (out > 0).float()
     c = choose.float()
     g0 = g * c * live
     g1 = g * (1.0 - c) * live
+    # with a trial axis, batched products (JAX computes the vmapped _bwd
+    # outside Pallas too)
     with _highest_matmul_precision():
-        dx0 = g0 @ w0.float().T
-        dw0 = x0.float().T @ g0
-        dx1 = g1 @ w1.float().T
-        dw1 = x1.float().T @ g1
-    return dx0, dx1, dw0, g0.sum(0), dw1, g1.sum(0)
+        dx0 = mm(g0, w0.float().transpose(-1, -2))
+        dw0 = mm(x0.float().transpose(-1, -2), g0)
+        dx1 = mm(g1, w1.float().transpose(-1, -2))
+        dw1 = mm(x1.float().transpose(-1, -2), g1)
+    return dx0, dx1, dw0, g0.sum(-2), dw1, g1.sum(-2)
 
 
 class FusedEmbrace(torch.autograd.Function):
@@ -492,9 +555,12 @@ def fused_embrace(x0, x1, w0, b0, w1, b1, p0, e_mask, seed, row_base=0):
     [E] and p0 [B] float32 (p0 = probability of modality 0 per row); seed
     an int or a 0-d int64 tensor on the operands' device; ``row_base`` the
     batch row of x0's first row (a shard of a batch draws that batch's
-    uniforms for its rows).  CUDA tensors go to the kernel; CPU tensors to
+    uniforms for its rows).  A population of T trials in one launch: every
+    operand with a leading ``[T]`` axis and ``seed`` a ``[T]`` int64 tensor
+    (or one key for all).  CUDA tensors go to the kernel; CPU tensors to
     the plain version with uniforms from
-    ``torch.Generator().manual_seed(seed)``.
+    ``torch.Generator().manual_seed(seed)`` at the live width of ``e_mask``
+    (:func:`_forward`).
     """
     return FusedEmbrace.apply(x0, x1, w0, b0, w1, b1, p0, e_mask, seed,
                               row_base)

@@ -9,7 +9,8 @@ reference's NaN -> 0).  :func:`auprc_prob` is the probability-based
 variant.  Every metric takes an optional row ``mask``; the ones a fit
 reads take a ``shard`` of a data-sharded batch (``parallel.mesh.BatchShard``)
 and score the whole batch: counts summed over the data axis, scores
-gathered.
+gathered.  Those a fit reads score a population at once: ``[T, B]`` rows
+(``[T, B, 2]`` logits) give one score per trial.
 """
 
 from __future__ import annotations
@@ -28,10 +29,10 @@ def _mask(mask, like):
 def _counts(pred, target, mask, shard=None):
     pred, target = _f32(pred), _f32(target)
     mask = _mask(mask, target)
-    tp = (pred * target * mask).sum()
-    fp = (pred * (1.0 - target) * mask).sum()
-    fn = ((1.0 - pred) * target * mask).sum()
-    tn = ((1.0 - pred) * (1.0 - target) * mask).sum()
+    tp = (pred * target * mask).sum(-1)
+    fp = (pred * (1.0 - target) * mask).sum(-1)
+    fn = ((1.0 - pred) * target * mask).sum(-1)
+    tn = ((1.0 - pred) * (1.0 - target) * mask).sum(-1)
     if shard is not None:
         return shard.sum(tp, fp, fn, tn)
     return tp, fp, fn, tn
@@ -60,31 +61,36 @@ def auprc_from_binary_pred(pred, target, mask=None, shard=None):
 
 def auprc_prob(scores, target, mask=None, shard=None):
     """Average precision from continuous scores (sklearn's step form: one
-    point per distinct score)."""
+    point per distinct score), over the last axis."""
     scores, target = _f32(scores), _f32(target)
     mask = _mask(mask, target)
+    scores, target, mask = torch.broadcast_tensors(scores, target, mask)
     if shard is not None:
-        scores, target, mask = shard.gather(scores, target, mask)
+        # rows lead in the gather: [B, ...] -> the whole batch's [total, ...]
+        scores, target, mask = (x.movedim(0, -1) for x in shard.gather(
+            *(x.movedim(-1, 0) for x in (scores, target, mask))))
     neg_inf = torch.finfo(torch.float32).min
     s = torch.where(mask > 0, scores, torch.full_like(scores, neg_inf))
-    order = torch.argsort(-s, stable=True)
-    t_sorted = (target * mask)[order]
-    m_sorted = mask[order]
-    tp_cum = torch.cumsum(t_sorted, 0)
-    pp_cum = torch.cumsum(m_sorted, 0)
-    n_pos = (target * mask).sum()
+    order = torch.argsort(-s, dim=-1, stable=True)
+    t_sorted = torch.gather(target * mask, -1, order)
+    m_sorted = torch.gather(mask, -1, order)
+    tp_cum = torch.cumsum(t_sorted, -1)
+    pp_cum = torch.cumsum(m_sorted, -1)
+    n_pos = (target * mask).sum(-1, keepdim=True)
     precision = tp_cum / torch.clamp(pp_cum, min=1.0)
     recall = tp_cum / torch.clamp(n_pos, min=1.0)
-    s_sorted = s[order]
-    next_s = torch.cat([s_sorted[1:], torch.full((1,), neg_inf, device=s.device)])
+    s_sorted = torch.gather(s, -1, order)
+    next_s = torch.cat([s_sorted[..., 1:],
+                        torch.full_like(s_sorted[..., :1], neg_inf)], -1)
     is_boundary = (s_sorted != next_s) & (m_sorted > 0)
     r_at_bounds = torch.where(is_boundary, recall, torch.zeros_like(recall))
-    r_prev_bound = torch.cat([torch.zeros(1, device=s.device),
-                              torch.cummax(r_at_bounds, 0).values[:-1]])
+    r_prev_bound = torch.cat([torch.zeros_like(recall[..., :1]),
+                              torch.cummax(r_at_bounds, -1).values[..., :-1]],
+                             -1)
     contrib = torch.where(is_boundary, precision * (recall - r_prev_bound),
                           torch.zeros_like(recall))
-    ap = contrib.sum()
-    return torch.where(n_pos > 0, ap, torch.zeros_like(ap))
+    ap = contrib.sum(-1)
+    return torch.where(n_pos[..., 0] > 0, ap, torch.zeros_like(ap))
 
 
 def auroc(scores, target, mask=None):
@@ -134,7 +140,7 @@ def f1_precision_recall(logits, target, mask=None, shard=None):
 
     p1, r1, f1_1 = _prf(tp, fp, fn)
     p0, r0, f1_0 = _prf(tn, fn, fp)
-    return torch.stack([(p0 + p1) / 2, (r0 + r1) / 2, (f1_0 + f1_1) / 2])
+    return torch.stack([(p0 + p1) / 2, (r0 + r1) / 2, (f1_0 + f1_1) / 2], -1)
 
 
 def accuracy(logits, target, mask=None):

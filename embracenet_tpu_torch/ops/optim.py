@@ -21,10 +21,16 @@ while the live params are bf16.  The update math is float32 either way.
 
 State trees are nested dicts of tensors with the params' structure.
 ``step`` and ``m_schedule`` are tensors of the shape the caller gives
-(0-d for one trial, ``[T]`` stacked over a population).
+(0-d for one trial, ``[T]`` stacked over a population).  A population
+updates as one program, as the JAX update runs vmapped: params leaves
+``[T, ...]`` and ``opt_id`` / ``lr`` / ``weight_decay`` ``[T]``, broadcast
+over each leaf's trailing axes, with a ``[T]`` ``upd`` mask that keeps a
+frozen trial's params and state as they were.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -55,11 +61,15 @@ def init_state(params, state_dtype=None, master: bool = False, lead=()):
     return state
 
 
-def apply_update(params, grads, state, opt_id, lr, weight_decay):
+def apply_update(params, grads, state, opt_id, lr, weight_decay, upd=None):
     """One optimizer step -> ``(new_params, new_state)``.  ``grads`` has the
     params' structure (a None leaf counts as a zero gradient); ``opt_id``,
     ``lr`` and ``weight_decay`` are numbers or 0-d tensors (tensors on the
-    state's device keep a step on the card free of host copies)."""
+    state's device keep a step on the card free of host copies), or for a
+    population stacked over a leading trial axis ``[T]`` tensors, as are
+    ``state["step"]`` and ``state["m_schedule"]``.  ``upd`` (a bool tensor
+    of their shape, optional): where False, the trial's params and state
+    come back unchanged (a stopped trial, a batch of padding)."""
     dev = state["step"].device
     step = state["step"] + 1.0
     opt_id = torch.as_tensor(opt_id, device=dev)
@@ -85,24 +95,54 @@ def apply_update(params, grads, state, opt_id, lr, weight_decay):
     cm = torch.where(is_rms, 0.0, torch.where(is_nadam, nadam_cm, 1.0 / bc1))
     vscale = torch.where(is_rms, 1.0, 1.0 / bc2)
 
-    def leaf_update(p, g, m, v, w=None):
-        # w is the float32 master (None when params are the source of
-        # truth); every cast is a no-op on the plain float32 path
-        p32 = (p if w is None else w).float()
-        g = (torch.zeros_like(p32) if g is None else g.float()) + weight_decay * p32
-        m_new = _B1 * m.float() + (1.0 - _B1) * g
-        v_new = beta2 * v.float() + (1.0 - beta2) * g * g
-        denom = torch.sqrt(v_new * vscale) + _EPS
-        delta = (cg * g + cm * m_new) / denom
-        new_w = p32 - lr * delta
-        return new_w.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype), new_w
+    # every leaf's update in one pass over the leaves laid end to end
+    # ([*lead, N]; lead = the trial axis of a population), so a step costs
+    # a few kernels rather than a few per leaf; the per-trial scalars
+    # broadcast over N, and each element's arithmetic is the per-leaf one
+    lead = tuple(state["step"].shape)
+    leaves_p = tree_leaves(params)
+    leaves_m, leaves_v = tree_leaves(state["m"]), tree_leaves(state["v"])
+    leaves_w = tree_leaves(state["master"]) if "master" in state else None
+    sizes = [p.numel() // max(1, math.prod(lead)) for p in leaves_p]
 
-    masters = [state["master"]] if "master" in state else []
-    out = [leaf_update(*leaves) for leaves in zip(*(
-        tree_leaves(t) for t in (params, grads, state["m"], state["v"], *masters)))]
-    new_state = {"m": tree_unflatten(params, [o[1] for o in out]),
-                 "v": tree_unflatten(params, [o[2] for o in out]),
-                 "step": step, "m_schedule": m_sched_new}
-    if masters:
-        new_state["master"] = tree_unflatten(params, [o[3] for o in out])
-    return tree_unflatten(params, [o[0] for o in out]), new_state
+    def flat(leaves):
+        return torch.cat([t.reshape(lead + (-1,)) for t in leaves], dim=-1)
+
+    def col(x):
+        return x.reshape(x.shape + (1,))
+
+    # w is the float32 master (absent when params are the source of truth);
+    # every cast is a no-op on the plain float32 path
+    p32 = flat([t.float() for t in (leaves_w or leaves_p)])
+    g = flat([torch.zeros_like(p, dtype=torch.float32) if t is None
+              else t.float() for t, p in zip(tree_leaves(grads), leaves_p)])
+    m_old, v_old = flat(leaves_m), flat(leaves_v)
+    g = g + col(weight_decay) * p32
+    m_new = _B1 * m_old.float() + (1.0 - _B1) * g
+    v_new = col(beta2) * v_old.float() + (1.0 - col(beta2)) * g * g
+    denom = torch.sqrt(v_new * col(vscale)) + _EPS
+    delta = (col(cg) * g + col(cm) * m_new) / denom
+    new_w = p32 - col(lr) * delta
+    m_new, v_new = m_new.to(m_old.dtype), v_new.to(v_old.dtype)
+    if upd is not None:
+        keep = col(upd)
+        new_w = torch.where(keep, new_w, p32)
+        m_new = torch.where(keep, m_new, m_old)
+        v_new = torch.where(keep, v_new, v_old)
+
+    def leaves_of(flat_t, like):
+        return [piece.reshape(t.shape) for piece, t in
+                zip(flat_t.split(sizes, dim=-1), like)]
+
+    new_state = {"m": tree_unflatten(params, leaves_of(m_new, leaves_m)),
+                 "v": tree_unflatten(params, leaves_of(v_new, leaves_v)),
+                 "step": step if upd is None else torch.where(
+                     upd, step, state["step"]),
+                 "m_schedule": m_sched_new if upd is None else torch.where(
+                     upd, m_sched_new, state["m_schedule"])}
+    if leaves_w is not None:
+        new_state["master"] = tree_unflatten(params, leaves_of(new_w, leaves_w))
+    # params come back contiguous, as the kernels read them
+    return tree_unflatten(params, [w.to(p.dtype).contiguous() for w, p in
+                                   zip(leaves_of(new_w, leaves_p), leaves_p)]), \
+        new_state

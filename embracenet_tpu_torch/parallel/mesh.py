@@ -333,7 +333,10 @@ class BatchShard(NamedTuple):
     ``n`` ways over the data axis' ``group`` (the last shards may reach
     past ``total``: masked padding).  A model's random draws and batch
     reductions go through it, so a shard computes what the whole batch
-    computes for its rows."""
+    computes for its rows.  A population's stacked step sums each of its
+    quantities (``[T, ...]``: every local trial's) in one all-reduce, and
+    each trial draws at its own batch rows (``models.layers.Draws`` gives
+    this shard a copy with ``total`` = the trial's rows)."""
     lo: int
     total: int
     n: int

@@ -25,7 +25,11 @@ Seeds: integer seeds take the place of the JAX package's PRNG keys.
 1000 * r``; the sequential retrain fits with ``seed = random_state + 200 +
 fold`` and the fold-fused retrain takes its run seeds from
 ``engine.seed_streams(random_state + 200 + fold, n_rep)``, the streams that
-fit derives from that seed, so both paths train each trial alike.
+fit derives from that seed, so both paths train each trial alike.  A
+fold-fused population pads every fold's batches to the widest fold's
+rows; the sequential path's fits run as many rows (``engine.fit``'s
+``plan_rows``, over the folds it trains), so its trials sum over the same
+batches as their fused copies.
 
 Stated divergence: ``CVConfig.share_programs`` keeps its population
 padding (``n_rep`` replicas of the retrain, trial 0 kept) but not the JAX
@@ -110,6 +114,17 @@ def rebalance_views(data: dict, views, type_augm: str, threshold: float,
 def _trial_trees(trees, t: int):
     """Trial ``t``'s slice of a fit's host copy ``(params, bn_state)``."""
     return tuple(tree_map(lambda a: a[t], tree) for tree in trees)
+
+
+def _plan_rows(pairs, batch_size: int) -> tuple:
+    """(train, eval) rows of the widest batch plans over the folds' (train,
+    eval) data pairs: what a fold-fused population's batches run."""
+    if not pairs:
+        return (0, 0)
+    return (max(balanced_plan(np.asarray(tr["y"]), batch_size,
+                              seed=123).idx.shape[1] for tr, _ in pairs),
+            max(eval_plan(len(np.asarray(ev["y"])), batch_size * 2,
+                          seed=123).idx.shape[1] for _, ev in pairs))
 
 
 def _warn_no_best_model(study_name, fold):
@@ -241,26 +256,40 @@ class KfoldCV:
                 resume=resume, verbose=verbose, cell_line=cell_line,
                 task=task, device=device, mesh=mesh)
 
+        # fold-level resume: the reference's fit() short-circuits when its
+        # checkpoint exists (training_models.py:71-76); here a finished
+        # fold reloads its scores
+        splits = {}
         for i, (train_index, test_index) in enumerate(folds):
+            fold_ck = os.path.join(checkpoint_dir,
+                                   f"{study_name}_fold{i + 1}_result")
+            if self._finished(fold_ck, resume, mesh) is None:
+                splits[i + 1] = self._split(data, views, y, train_index,
+                                            test_index, cv_cfg, train_cfg,
+                                            random_state)
+        # every fit's batches run the rows the fold-fused populations run
+        # (the widest pending fold's), so each trial trains exactly as it
+        # does fold-fused
+        search_rows = _plan_rows([(s[0], s[1]) for s in splits.values()],
+                                 train_cfg.batch_size)
+        retrain_rows = _plan_rows([(s[2], s[3]) for s in splits.values()],
+                                  train_cfg.batch_size)
+        for i in range(len(folds)):
             fold = i + 1
             if verbose:
                 print(f">>> fold {fold}/{cv_cfg.n_folds}")
-
-            # fold-level resume: the reference's fit() short-circuits when its
-            # checkpoint exists (training_models.py:71-76); here a finished
-            # fold reloads its scores
-            fold_ck = os.path.join(checkpoint_dir,
-                                   f"{study_name}_fold{fold}_result")
-            meta = self._finished(fold_ck, resume, mesh)
-            if meta is not None:
+            if fold not in splits:
+                fold_ck = os.path.join(checkpoint_dir,
+                                       f"{study_name}_fold{fold}_result")
+                meta = self._finished(fold_ck, resume, mesh)
                 final_test, final_train = self._resume(meta, fold, verbose)
                 self.scores_dict["final_test_AUPRC_scores"].append(final_test)
                 self.scores_dict["final_train_AUPRC_scores"].append(final_train)
                 avg_score.append(final_test)
                 continue
-            train_d, val_d, trainval_d, test_d = self._split(
-                data, views, y, train_index, test_index, cv_cfg, train_cfg,
-                random_state)
+            fold_ck = os.path.join(checkpoint_dir,
+                                   f"{study_name}_fold{fold}_result")
+            train_d, val_d, trainval_d, test_d = splits.pop(fold)
 
             # ---- hyperparameter search (one population) ----
             search = run_search(
@@ -268,7 +297,8 @@ class KfoldCV:
                 study_name=f"{study_name}_{fold}", storage=storage,
                 sampler=cv_cfg.sampler, n_trials=cv_cfg.n_trials,
                 train_cfg=train_cfg, checkpoint_dir=checkpoint_dir,
-                seed=random_state + fold, verbose=verbose, device=device,
+                seed=random_state + fold, verbose=verbose,
+                fit_kwargs={"plan_rows": search_rows}, device=device,
                 mesh=mesh)
 
             hp = space_mod.params_to_hp(model, search.best_params)
@@ -291,7 +321,8 @@ class KfoldCV:
                                 trainval_d, test_d, train_cfg,
                                 seed=random_state + 200 + fold,
                                 init_params=init_params, init_bn_state=init_bn,
-                                verbose=verbose, device=device, mesh=mesh)
+                                verbose=verbose, device=device, mesh=mesh,
+                                plan_rows=retrain_rows)
 
             fold_scores = {
                 "AUPRC_train": result.auprc_train[0],

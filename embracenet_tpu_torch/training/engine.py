@@ -6,32 +6,38 @@ training_models.py:31-186` ``fit`` and the Optuna objective's inner loop):
   * the fold's train/test set lives on the device; an epoch walks a padded
     batch-index matrix (see batching.py) and gathers each batch there;
   * a *population* of T trials (different architectures via supernet masks,
-    different optimizers/lr/wd via the branchless update) trains together.
-    Params, BN state and optimizer state are stacked over a leading trial
-    axis, as ``FitResult.params`` is in the JAX package; each batch step
-    runs the trials one after another on their slices (a trial axis inside
-    the kernels is later work), which gives the results of T single-trial
-    fits with the same seeds;
+    different optimizers/lr/wd via the branchless update) trains as one
+    program, as ``jax.jit(jax.vmap(chunk_one))`` trains it in the JAX
+    package: params, BN state, optimizer state and hyperparameters carry a
+    leading trial axis ``[T, ...]``, and every batch step runs one forward
+    pass, one loss, one autograd backward and one optimizer update for all
+    T trials (:func:`population_step`).  The fused kernel is launched once
+    per population forward pass, with the trial axis in its grid.  Only the
+    random draws go trial by trial (``models.layers.Draws``): trial t draws
+    from its own generator at the shape its fit alone has, so it draws what
+    that fit draws, and the values it computes equal that fit's up to the
+    summation order of batched products (exactly where they sum alike);
   * per-batch INS-weighted cross entropy, per-batch argmax-AUPRC and the
     reference's metric averaging (divide by ``len(loader)``) are preserved;
   * early stopping (patience on test AUPRC, `models/utils/utils.py:23-67`)
     runs on the device: best, counter, stopped and epochs run are device
-    tensors, and a stopped trial, like a fully masked batch, keeps its
-    params, BN state and optimizer state through a select.  Nothing inside
+    tensors, and a stopped trial, like a fully masked batch or a padded
+    batch of a shorter per-trial plan, keeps its params, BN state and
+    optimizer state through a select (a ``[T]`` mask).  Nothing inside
     an epoch chunk waits for the device: the host reads the metrics once a
     chunk is enqueued (with ``pipeline_chunks``, once the next one is).
 
 Runs on the CUDA card unless the caller passes ``device="cpu"``.  For
 EmbraceNetMultimodal the docking + embracement runs in the fused CUDA
 kernel and its gradient (``ops/embrace.py``) unless
-``TrainConfig.fused_embrace`` is False.  The optimizer state is updated in
-place (``copy_`` into the stacked tensors) so a step holds one copy of it.
+``TrainConfig.fused_embrace`` is False.  A step's new params, BN state and
+optimizer state replace the old ones, as the JAX update computes them.
 
 Random streams: the JAX PRNG keys become per-trial integer seeds
 (:func:`seed_streams`): an init seed feeds the trial's ``torch.Generator``
 for its parameter init, a run seed a numpy generator that gives every batch
-step its forward seed.  Same distributions as the JAX package, different
-streams.
+step of the trial its forward seed, the seed of the step's generator of
+that trial.  Same distributions as the JAX package, different streams.
 
 Under a mesh (``parallel/mesh.py``) each rank trains its block of the
 population (the trial axes) on its columns of every batch (the 'data'
@@ -39,7 +45,8 @@ axis).  The population is padded to the trial axes with copies of its last
 trial; every rank of a data group takes the same step seed, every per-row
 draw is taken by global row and every reduction over the batch is a sum
 over the data group (``parallel.mesh.BatchShard``), so a sharded fit draws
-and sums what the meshless fit does.  The host reads the per-trial metrics
+and sums what the meshless fit does; a stacked step sums each quantity of
+all local trials in one all-reduce.  The host reads the per-trial metrics
 of all blocks at each chunk, so early exit, pruning and callbacks decide
 alike on every rank, and every rank returns the whole population.
 """
@@ -57,7 +64,9 @@ from embracenet_tpu_torch import resolve_device
 from embracenet_tpu_torch.config import TrainConfig
 from embracenet_tpu_torch.convert import (tree_leaves, tree_map, tree_to_torch,
                                           tree_unflatten)
-from embracenet_tpu_torch.models.layers import exact_float32
+from embracenet_tpu_torch.models.layers import (Draws, Trials, exact_float32,
+                                                population_invariant,
+                                                stack_hps)
 from embracenet_tpu_torch.ops import losses, metrics, optim
 from embracenet_tpu_torch.parallel.mesh import (BatchShard, batch_sharding,
                                                 gather_trials, resolve_mesh,
@@ -187,11 +196,11 @@ def _device_data(data, spec: ModelSpec, device):
 
 
 def _pad_plan(plan, n_batches: int, width: int):
-    """A BatchPlan padded to (n_batches, width) with masked rows.  Padding
-    only lets per-trial plans of different shapes stack: ``fit`` walks each
-    trial's own batches at its own width and never runs the padding.  The
-    JAX engine also rounds both up to buckets (4 batches, 16 rows) to reuse
-    compiled programs."""
+    """A BatchPlan padded to (n_batches, width) with masked rows, so that
+    per-trial plans of different shapes stack: in a padded batch a trial
+    is frozen and draws nothing, and its rows past its width are masked.
+    The JAX engine also rounds both up to buckets (4 batches, 16 rows) to
+    reuse compiled programs."""
     idx = np.zeros((n_batches, width), np.int64)
     mask = np.zeros((n_batches, width), np.float32)
     idx[:plan.idx.shape[0], :plan.idx.shape[1]] = plan.idx
@@ -199,13 +208,13 @@ def _pad_plan(plan, n_batches: int, width: int):
     return idx, mask
 
 
-def _stack_plans(ps, device, n_data: int = 1):
+def _stack_plans(ps, device, n_data: int = 1, rows: int = 0):
     """[P, nb, bw] plan tensors on the device (P = 1 for a shared plan);
-    ``bw`` covers every plan's width rounded up to a multiple of
-    ``n_data``, so each data shard's columns exist (masked past a plan's
-    own width)."""
+    ``bw`` covers every plan's width and ``rows``, rounded up to a multiple
+    of ``n_data``, so each data shard's columns exist (masked past a
+    plan's own width)."""
     nb = max(p.idx.shape[0] for p in ps)
-    bw = max(-(-p.idx.shape[1] // n_data) * n_data for p in ps)
+    bw = max(-(-max(p.idx.shape[1], rows) // n_data) * n_data for p in ps)
     padded = [_pad_plan(p, nb, bw) for p in ps]
     return (torch.as_tensor(np.stack([p[0] for p in padded]), device=device),
             torch.as_tensor(np.stack([p[1] for p in padded]), device=device))
@@ -217,19 +226,8 @@ def _gather(data, idx, spec: ModelSpec):
 
 
 def _trial(tree, t: int):
+    """Trial ``t``'s slice of a tree stacked over trials."""
     return tree_map(lambda a: a[t], tree)
-
-
-def _opt_trial(opt, t: int):
-    return {k: (v[t] if isinstance(v, torch.Tensor) else _trial(v, t))
-            for k, v in opt.items()}
-
-
-def _write(stacked, t: int, new, upd):
-    """stacked[t] <- new where ``upd`` (a device bool), else unchanged."""
-    def one(a, n):
-        a[t].copy_(torch.where(upd, n.to(a.dtype), a[t]))
-    tree_map(one, stacked, new)
 
 
 def _sum_grads(shard, grads):
@@ -242,37 +240,72 @@ def _sum_grads(shard, grads):
     return [None if g is None else next(sums) for g in grads]
 
 
-def train_step(spec: ModelSpec, params, bn_state, opt_state, hp, opt_hp,
-               inputs, y, mask, seed: int, compute_dtype, statics, shard=None):
-    """One trial's batch step: forward, weighted CE, gradients through
-    autograd (the fused kernel's through its Function), optimizer update.
-    Returns ``(loss, logits, new_params, new_bn_state, new_opt_state)``;
-    the caller decides whether the new state is kept.  For a ``shard`` of
-    a data-sharded batch the loss is the whole batch's and the gradients
-    are summed over the data group before the update, so every rank of the
-    group updates alike."""
+def population_step(spec: ModelSpec, params, bn_state, opt_state, trials,
+                    opt_hp, inputs, y, mask, compute_dtype, statics,
+                    shard=None, upd=None):
+    """One batch step of a whole population: one forward pass
+    (``spec.apply_trials``), the per-trial weighted CE, one autograd
+    backward of their sum (each trial's gradient is its own) and one
+    optimizer update of the stacked tree.  ``trials`` (a
+    ``layers.Trials``) carries the step's draws; ``opt_hp`` holds ``[T]``
+    tensors; ``inputs`` and ``y`` are ``[B, ...]`` (shared by every trial)
+    or ``[T, B, ...]``, ``mask`` ``[T, B]``.  ``upd`` (``[T]`` bool,
+    optional) freezes the trials where it is False.  Returns ``(loss [T],
+    logits [T, B, 2], new_params, new_bn_state, new_opt_state)``.  For a
+    ``shard`` of a data-sharded batch the losses are the whole batch's
+    and the gradients are summed over the data group (one all-reduce for
+    all trials) before the update, so every rank of the group updates
+    alike."""
+    if y.dim() == 1:
+        y = y.expand(len(trials), -1)
     leaves = [a.detach().requires_grad_(True) for a in tree_leaves(params)]
     live = tree_unflatten(params, leaves)
     # the backward pass too in full float32: cuDNN would take its
     # convolutions' and LSTM's gradients in TF32 outside this context
     with exact_float32():
-        logits, new_bn = spec.apply(live, bn_state, hp, inputs, True, seed,
-                                    mask, compute_dtype, statics, shard)
+        logits, new_bn = spec.apply_trials(live, bn_state, trials, inputs,
+                                           True, mask, compute_dtype, statics,
+                                           shard)
         loss = losses.weighted_cross_entropy(logits, y, mask, shard=shard)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
     if shard is not None:
         grads = _sum_grads(shard, grads)
         loss = shard.sum(loss.detach())
     new_params, new_opt = optim.apply_update(
         params, tree_unflatten(params, grads), opt_state, opt_hp["optimizer"],
-        opt_hp["lr"], opt_hp["weight_decay"])
-    return (loss.detach(), logits.detach(), new_params,
-            tree_map(torch.Tensor.detach, new_bn), new_opt)
+        opt_hp["lr"], opt_hp["weight_decay"], upd)
+    new_bn = tree_map(torch.Tensor.detach, new_bn)
+    if upd is not None:
+        new_bn = tree_map(lambda n, o: torch.where(
+            upd.reshape((-1,) + (1,) * (o.dim() - 1)), n, o), new_bn, bn_state)
+    return loss.detach(), logits.detach(), new_params, new_bn, new_opt
+
+
+def train_step(spec: ModelSpec, params, bn_state, opt_state, hp, opt_hp,
+               inputs, y, mask, seed: int, compute_dtype, statics, shard=None):
+    """One trial's batch step: :func:`population_step` of a population of
+    one, its draws from a ``torch.Generator`` seeded with ``seed``.
+    Returns ``(loss, logits, new_params, new_bn_state, new_opt_state)``;
+    the caller decides whether the new state is kept."""
+    dev = y.device
+
+    def stack(tree):
+        return tree_map(lambda a: torch.as_tensor(a, device=dev)[None], tree)
+
+    draws = Draws.one(torch.Generator(dev).manual_seed(int(seed)), y.shape[0],
+                      dev, shard)
+    loss, logits, new_p, new_bn, new_opt = population_step(
+        spec, stack(params), stack(bn_state), stack(opt_state),
+        Trials([hp], stack_hps([hp], dev), None, draws),
+        {k: torch.as_tensor(v, device=dev).reshape(1) for k, v in opt_hp.items()},
+        inputs, y, mask[None], compute_dtype, statics, shard)
+    return loss[0], logits[0], _trial(new_p, 0), _trial(new_bn, 0), \
+        _trial(new_opt, 0)
 
 
 def _auprc_of(cfg, logits, y, mask, shard=None):
     if cfg.auprc_on_probabilities:
-        return metrics.auprc_prob(torch.softmax(logits, -1)[:, 1], y, mask,
+        return metrics.auprc_prob(torch.softmax(logits, -1)[..., 1], y, mask,
                                   shard)
     return metrics.auprc_argmax(logits, y, mask, shard)
 
@@ -311,7 +344,8 @@ def fit(spec: ModelSpec,
         init_seeds=None,
         run_seeds=None,
         chunk_callback=None,
-        device=None) -> FitResult:
+        device=None,
+        plan_rows=(0, 0)) -> FitResult:
     """Train a population of trials on one (train, test) split.
 
     ``hp_list``/``opt_list``: per-trial concrete hyperparameter dicts
@@ -334,6 +368,12 @@ def fit(spec: ModelSpec,
     epochs they trained.
 
     Runs on the card unless ``device`` says otherwise (``"cpu"``).
+
+    ``plan_rows`` = (train, eval): the fewest rows a batch of this fit
+    runs, its plans padded with masked rows up to them.  A trial computes
+    exactly what it computes in any population whose batches run as many
+    rows (fold-fused CV pads every fold's plan to the widest fold's, so
+    ``KfoldCV`` gives its sequential fits the fused stack's rows).
 
     ``mesh``: a ``parallel.mesh.Mesh``, a ``MeshConfig``, ``"auto"`` or
     None (``parallel.mesh.resolve_mesh``).  Every rank of the mesh calls
@@ -432,22 +472,24 @@ def fit(spec: ModelSpec,
     eval_div_dev = torch.as_tensor(shard_population(mesh, eval_div)[0],
                                    device=dev)
 
-    plan_idx, plan_mask = _stack_plans(plans, dev, n_data)
-    # each plan's own [nb, bw]: a trial of a padded stack (fold-fused plans)
-    # walks only its own batches at its own width, so its steps, random
-    # draws and results are those of the fit that had its plan alone
-    train_dims = [p.idx.shape for p in plans]
-    eval_dims = [p.idx.shape for p in tplans]
+    plan_idx, plan_mask = _stack_plans(plans, dev, n_data, plan_rows[0])
+    # each trial's own plan shape [nb, bw]: in a padded stack (fold-fused
+    # plans) a trial steps through its own batches only (past them it is
+    # frozen and draws nothing) and draws at its own width, so it draws
+    # what the fit that had its plan alone draws
+    train_dims = [p.idx.shape for p in plans] * (n_local if len(plans) == 1 else 1)
+    eval_rows = max([p.idx.shape[1] for p in tplans] + [plan_rows[1]])
     if cfg.eval_reshuffle:
         # the reference reshuffles its test loader every epoch
         # (training_models.py:477); every epoch's plan goes to the device
         # now, so no chunk waits for a copy
         eval_plans_by_epoch = [
             _stack_plans([eval_plan(n_test, cfg.batch_size * 2, seed=123 + ep)],
-                         dev, n_data)
+                         dev, n_data, plan_rows[1])
             for ep in range(cfg.num_epochs)]
     else:
-        eval_plans_by_epoch = [_stack_plans(tplans, dev, n_data)] * cfg.num_epochs
+        eval_plans_by_epoch = [_stack_plans(tplans, dev, n_data,
+                                            plan_rows[1])] * cfg.num_epochs
     plan_has_rows = plan_mask.sum(-1) > 0                    # [P, nb]
 
     def cols(bw):
@@ -458,66 +500,63 @@ def fit(spec: ModelSpec,
         c = batch_sharding(mesh, bw)
         return c, BatchShard(c.start, bw, n_data, mesh.group("data"))
 
+    # the population's hyperparameters on the device, and the statics each
+    # trial's fit alone would have (the shapes it draws at)
+    hp_dev = stack_hps(hps, dev)
+    own = [_resolve_statics(spec, [hp], cfg) for hp in hps]
+    tr_cols, tr_shard = cols(max([w for _, w in train_dims] + [plan_rows[0]]))
+    ev_cols, ev_shard = cols(eval_rows)
+    eval_trials = Trials(hps, hp_dev, own)
     run_rngs = [np.random.default_rng(int(s)) for s in my_run_seeds]
     es = (torch.full((n_local,), -float("inf"), device=dev),   # best score
           torch.zeros(n_local, dtype=torch.int32, device=dev),  # counter
           torch.zeros(n_local, dtype=torch.bool, device=dev),   # stopped
           torch.zeros(n_local, dtype=torch.int32, device=dev))  # epochs run
 
+    def rows_of(idx, mask, data):
+        """A plan row's inputs, targets and [T, bw] mask: one gather for
+        every trial (shared by all, or [T, bw] per-trial rows)."""
+        inputs, y = _gather(data, idx if idx.shape[0] > 1 else idx[0], spec)
+        return inputs, y, mask.expand(n_local, -1)
+
     def run_epoch(active, t_idx, t_mask):
-        """Train every trial over the plan, then evaluate it: per-trial
-        device tensors (loss sum, train AUPRC sum, test AUPRC sum, f1)."""
-        loss_sum = [[] for _ in range(n_local)]
-        auprc_sum = [[] for _ in range(n_local)]
-        shared_plan = plan_idx.shape[0] == 1
+        """Train the population over the plan, one stacked step a batch,
+        then evaluate it: per-trial device tensors (loss sum, train AUPRC
+        sum, test AUPRC sum, f1)."""
+        nonlocal params, bn_state, opt_state
+        zeros = torch.zeros(n_local, device=dev)
+        tr_loss, tr_auprc, te_auprc, te_f1 = zeros, zeros, zeros, 0.0
         for b in range(plan_idx.shape[1]):
-            if shared_plan:
-                c, shard = cols(train_dims[0][1])
-                batch = _gather(train_data, plan_idx[0, b, c], spec)
-            for t in range(n_local):
-                p_ = 0 if shared_plan else t
-                nb, bw = train_dims[p_]
-                if b >= nb:
-                    continue          # padding of a shorter plan
-                c, shard = cols(bw)
-                inputs, y = (batch if shared_plan
-                             else _gather(train_data, plan_idx[t, b, c], spec))
-                mask = plan_mask[p_, b, c]
-                seed_tb = int(run_rngs[t].integers(0, 2 ** 31 - 1))
-                loss, logits, new_p, new_bn, new_opt = train_step(
-                    spec, _trial(params, t), _trial(bn_state, t),
-                    _opt_trial(opt_state, t), hps[t],
-                    {k_: v[t] for k_, v in opt_hp.items()},
-                    inputs, y, mask, seed_tb, compute_dtype, statics, shard)
-                # freeze stopped trials and skip fully masked dummy batches
-                upd = active[t] & plan_has_rows[p_, b]
-                with torch.no_grad():
-                    _write(params, t, new_p, upd)
-                    _write(bn_state, t, new_bn, upd)
-                    _write(opt_state, t, new_opt, upd)
-                loss_sum[t].append(loss)
-                auprc_sum[t].append(_auprc_of(cfg, logits, y, mask, shard))
-        tr_loss = torch.stack([torch.stack(v).sum() for v in loss_sum])
-        tr_auprc = torch.stack([torch.stack(v).sum() for v in auprc_sum])
-        te_auprc, te_f1 = [], []
+            inputs, y, mask = rows_of(plan_idx[:, b, tr_cols],
+                                      plan_mask[:, b, tr_cols], train_data)
+            # each trial's generator for this step (its run stream's next
+            # seed); a trial past its own plan draws nothing
+            gens = [torch.Generator(dev).manual_seed(
+                        int(rng.integers(0, 2 ** 31 - 1))) if b < nb else None
+                    for rng, (nb, _) in zip(run_rngs, train_dims)]
+            trials = Trials(hps, hp_dev, own,
+                            Draws(gens, [w for _, w in train_dims], dev,
+                                  tr_shard))
+            # freeze stopped trials and fully masked (or padding) batches
+            upd = active & plan_has_rows[:, b]
+            loss, logits, params, bn_state, opt_state = population_step(
+                spec, params, bn_state, opt_state, trials, opt_hp, inputs, y,
+                mask, compute_dtype, statics, tr_shard, upd)
+            # running sums, a batch at a time: a trial's sums do not depend
+            # on how many batches the other trials' plans have
+            tr_loss = tr_loss + loss
+            tr_auprc = tr_auprc + _auprc_of(cfg, logits, y, mask, tr_shard)
         with torch.no_grad():
-            for t in range(n_local):
-                p_ = 0 if t_idx.shape[0] == 1 else t
-                nb, bw = eval_dims[p_]
-                c, shard = cols(bw)
-                a_sum, f_sum = [], []
-                for b in range(nb):
-                    inputs, y = _gather(test_data, t_idx[p_, b, c], spec)
-                    mask = t_mask[p_, b, c]
-                    logits, _ = spec.apply(_trial(params, t), _trial(bn_state, t),
-                                           hps[t], inputs, False, 0, mask,
-                                           compute_dtype, statics, shard)
-                    a_sum.append(_auprc_of(cfg, logits, y, mask, shard))
-                    f_sum.append(metrics.f1_precision_recall(logits, y, mask,
-                                                             shard))
-                te_auprc.append(torch.stack(a_sum).sum())
-                te_f1.append(torch.stack(f_sum).sum(0))
-        return tr_loss, tr_auprc, torch.stack(te_auprc), torch.stack(te_f1)
+            for b in range(t_idx.shape[1]):
+                inputs, y, mask = rows_of(t_idx[:, b, ev_cols],
+                                          t_mask[:, b, ev_cols], test_data)
+                logits, _ = spec.apply_trials(params, bn_state, eval_trials,
+                                              inputs, False, mask,
+                                              compute_dtype, statics, ev_shard)
+                te_auprc = te_auprc + _auprc_of(cfg, logits, y, mask, ev_shard)
+                te_f1 = te_f1 + metrics.f1_precision_recall(logits, y, mask,
+                                                            ev_shard)
+        return tr_loss, tr_auprc, te_auprc, te_f1
 
     def run_chunk(n_ep: int, epoch_lo: int):
         nonlocal es
@@ -525,7 +564,10 @@ def fit(spec: ModelSpec,
         for e in range(n_ep):
             t_idx, t_mask = eval_plans_by_epoch[epoch_lo + e]
             active = ~es[2]
-            tr_loss, tr_auprc, te_auprc, te_f1 = run_epoch(active, t_idx, t_mask)
+            # a trial's sums are those of its population of any size
+            with population_invariant():
+                tr_loss, tr_auprc, te_auprc, te_f1 = run_epoch(active, t_idx,
+                                                               t_mask)
             # EarlyStopping parity on the batch-averaged test AUPRC
             es = early_stop_update(es, te_auprc / eval_div_dev, cfg.patience,
                                    cfg.delta)

@@ -4,7 +4,11 @@
 ``apply`` takes ``seed`` (an int that seeds the forward's random draws) in
 place of the JAX package's PRNG key, and ``init_from_fans`` a
 ``torch.Generator`` in place of ``init_traced``'s key; everything else keeps
-the JAX calling convention.
+the JAX calling convention.  ``apply`` is one trial; ``apply_trials`` is
+what ``jax.vmap(spec.apply)`` is in the JAX engine: a population's stacked
+params, BN state and hyperparameters (:func:`stack_hps`, in a
+``layers.Trials``) in one forward pass, each trial drawing from its own
+generator (``layers.Draws``).
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ import torch
 
 from embracenet_tpu_torch.data import codec
 from embracenet_tpu_torch.models import cnn, cnn_lstm, concatnet, embracenet, ffnn
-from embracenet_tpu_torch.models.layers import as_dtype
+# stack_hps, the JAX engine's ``stack_trials(hp_list)``, is exported here
+# beside the specs whose ``apply_trials`` reads what it stacks
+from embracenet_tpu_torch.models.layers import as_dtype, stack_hps  # noqa: F401
 
 MODEL_FAMILIES = ("FFNN", "CNN", "CNN_LSTM", "EmbraceNetMultimodal",
                   "ConcatNetMultimodal")
@@ -39,6 +45,14 @@ class ModelSpec:
     init_from_fans: Callable = None  # (generator, fans) -> (params, bn_state):
     #                                  a population inits trial by trial from
     #                                  per-trial generators (engine.fit)
+    apply_trials: Callable = None  # (params, bn_state, trials, inputs, train,
+    #                                row_mask, compute_dtype, statics, shard,
+    #                                seed) -> (logits [T, B, 2], bn): the
+    #                                population's forward; ``trials`` a
+    #                                layers.Trials, params / bn leaves and
+    #                                row_mask [T, ...], inputs [T, B, ...] or
+    #                                [B, ...] (shared by every trial), seed
+    #                                the fused kernel's eval key
 
 
 def _cnn_statics(hp_list, key="cnn"):
@@ -85,6 +99,18 @@ def _seq_input(inputs, compute_dtype):
     return codec.one_hot(inputs["cnn"], dtype=as_dtype(compute_dtype) or torch.float32)
 
 
+def _seq_trials(inputs, n_trials, compute_dtype):
+    """codes uint8 [B, 256] (shared) or [T, B, 256] -> the CNN's one-hot
+    layout of a population, [B, T*4, 256]."""
+    return cnn.trial_channels(_seq_input(inputs, compute_dtype), n_trials)
+
+
+def _ffnn_trials(inputs, n_trials):
+    """features [B, F] (shared) or [T, B, F] -> [T, B, F]."""
+    x = inputs["ffnn"]
+    return x.expand(n_trials, *x.shape).contiguous() if x.dim() == 2 else x
+
+
 @functools.lru_cache(maxsize=None)
 def get_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
     """Memoized: repeated calls return the identical ModelSpec object."""
@@ -105,11 +131,20 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
                                 shard=shard)
             return logits, bn_state
 
+        def apply_trials(params, bn_state, trials, inputs, train, row_mask,
+                         compute_dtype, statics=None, shard=None, seed=0):
+            logits = ffnn.apply_trials(
+                params, trials, _ffnn_trials(inputs, len(trials)), train=train,
+                compute_dtype=compute_dtype,
+                max_width=(statics or {}).get("ffnn_max_width"))
+            return logits, bn_state
+
         return ModelSpec(model, ("ffnn",), init, apply,
                          lambda hps: {"ffnn_max_width": _ffnn_width(hps, key=None)},
                          fan_ins=lambda hp: ffnn.fan_ins(hp, in_features_ffnn),
                          init_from_fans=lambda gen, fans: (
-                             ffnn.init_from_fans(gen, fans, in_features_ffnn), {}))
+                             ffnn.init_from_fans(gen, fans, in_features_ffnn), {}),
+                         apply_trials=apply_trials)
 
     if model == "CNN":
         def apply(params, bn_state, hp, inputs, train, seed, row_mask,
@@ -124,9 +159,21 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
                              max_kernels=st.get("cnn_max_kernels"),
                              shard=shard)
 
+        def apply_trials(params, bn_state, trials, inputs, train, row_mask,
+                         compute_dtype, statics=None, shard=None, seed=0):
+            st = statics or {}
+            return cnn.apply_trials(
+                params, bn_state, trials,
+                _seq_trials(inputs, len(trials), compute_dtype), train=train,
+                row_mask=row_mask, compute_dtype=compute_dtype,
+                max_depth=st.get("cnn_max_depth"),
+                max_channels=st.get("cnn_max_channels"),
+                max_kernels=st.get("cnn_max_kernels"), shard=shard)
+
         return ModelSpec(model, ("cnn",), cnn.init, apply,
                          lambda hps: _cnn_statics(hps, key=None),
-                         fan_ins=cnn.fan_ins, init_from_fans=cnn.init_from_fans)
+                         fan_ins=cnn.fan_ins, init_from_fans=cnn.init_from_fans,
+                         apply_trials=apply_trials)
 
     if model == "EmbraceNetMultimodal":
         def init(generator, hp):
@@ -155,10 +202,25 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
             out["post_max"] = _post_width(hps, "post_widths")
             return out
 
+        def apply_trials(params, bn_state, trials, inputs, train, row_mask,
+                         compute_dtype, statics=None, shard=None, seed=0):
+            st = statics or {}
+            return embracenet.apply_trials(
+                params, bn_state, trials, _ffnn_trials(inputs, len(trials)),
+                _seq_trials(inputs, len(trials), compute_dtype), train=train,
+                seed=seed, row_mask=row_mask, compute_dtype=compute_dtype,
+                cnn_max_depth=st.get("cnn_max_depth"),
+                cnn_max_channels=st.get("cnn_max_channels"),
+                cnn_max_kernels=st.get("cnn_max_kernels"),
+                ffnn_max_width=st.get("ffnn_max_width"),
+                embrace_max=st.get("embrace_max"), post_max=st.get("post_max"),
+                fused=st.get("fused_embrace", False), shard=shard)
+
         return ModelSpec(model, ("ffnn", "cnn"), init, apply, statics,
                          fan_ins=lambda hp: embracenet.fan_ins(hp, in_features_ffnn),
                          init_from_fans=lambda gen, fans: embracenet.init_from_fans(
-                             gen, fans, in_features_ffnn))
+                             gen, fans, in_features_ffnn),
+                         apply_trials=apply_trials)
 
     if model == "ConcatNetMultimodal":
         def init(generator, hp):
@@ -183,10 +245,24 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
             out["post_max"] = _post_width(hps, "post_widths")
             return out
 
+        def apply_trials(params, bn_state, trials, inputs, train, row_mask,
+                         compute_dtype, statics=None, shard=None, seed=0):
+            st = statics or {}
+            return concatnet.apply_trials(
+                params, bn_state, trials, _ffnn_trials(inputs, len(trials)),
+                _seq_trials(inputs, len(trials), compute_dtype), train=train,
+                row_mask=row_mask, compute_dtype=compute_dtype,
+                cnn_max_depth=st.get("cnn_max_depth"),
+                cnn_max_channels=st.get("cnn_max_channels"),
+                cnn_max_kernels=st.get("cnn_max_kernels"),
+                ffnn_max_width=st.get("ffnn_max_width"),
+                post_max=st.get("post_max"), shard=shard)
+
         return ModelSpec(model, ("ffnn", "cnn"), init, apply, statics,
                          fan_ins=lambda hp: concatnet.fan_ins(hp, in_features_ffnn),
                          init_from_fans=lambda gen, fans: concatnet.init_from_fans(
-                             gen, fans, in_features_ffnn))
+                             gen, fans, in_features_ffnn),
+                         apply_trials=apply_trials)
 
     if model == "CNN_LSTM":
         def _arch(hp):
@@ -210,9 +286,16 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
                                   seed=seed, row_mask=row_mask,
                                   compute_dtype=compute_dtype, shard=shard)
 
+        def apply_trials(params, bn_state, trials, inputs, train, row_mask,
+                         compute_dtype, statics=None, shard=None, seed=0):
+            return cnn_lstm.apply_trials(
+                params, bn_state, trials,
+                _seq_trials(inputs, len(trials), compute_dtype), train=train,
+                row_mask=row_mask, compute_dtype=compute_dtype, shard=shard)
+
         # no fan-ins: parameter shapes follow the trial, so engine.fit
         # inits each trial through ``init``
         return ModelSpec(model, ("cnn",), cnn_lstm.init, apply, statics,
-                         vmappable=False)
+                         vmappable=False, apply_trials=apply_trials)
 
     raise ValueError(f"unknown model family: {model} (use one of {MODEL_FAMILIES})")

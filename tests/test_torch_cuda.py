@@ -303,7 +303,8 @@ def test_run_search_trains_its_trials_on_the_card(cuda, tmp_path):
                      train_cfg=TrainConfig(num_epochs=2, epoch_chunk=2,
                                            batch_size=100),
                      checkpoint_dir=str(tmp_path))
-    assert K.LAUNCHES - before == 3 * 2 * (4 + 1)
+    # the 3 trials train as one population: one launch a forward pass
+    assert K.LAUNCHES - before == 2 * (4 + 1)
     study = Study("s", str(tmp_path / "s.db"))
     rows = study.trials
     study.close()
@@ -473,3 +474,99 @@ def test_device_trace_names_the_kernel_after_a_predict(cuda, tmp_path):
     with open(path) as fh:
         trace = fh.read()
     assert "embrace_fused_fwd_kernel" in trace and '"predict"' in trace
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["fused_embrace", "fused_embrace_fulle"])
+def test_trial_axis_launch_equals_single_launches(cuda, kernel, dtype):
+    """One launch of 3 trials (each its own weights, p0, live width and
+    seed): every trial's ``choose`` and ``out`` equal its single launch's
+    bit for bit (the plan is one trial's, so its sums run in one order),
+    and ``out`` is the plain version's ``where(choose, d0, d1)``."""
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    fn = getattr(K, kernel)
+    per = [_inputs(cuda, dtype, live=live) for live in (256, 128, 384)]
+    x0, x1, w0, b0, w1, b1, e_mask = (torch.stack(a) for a in zip(*per))
+    args = (x0, x1, w0, b0, w1, b1)
+    p0 = torch.rand(3, x0.shape[1], device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    seeds = torch.tensor([3, 4, 5], device=cuda)
+    before = getattr(K, "LAUNCHES" if kernel == "fused_embrace" else
+                     "LAUNCHES_FULLE")
+    out, ch = fn(*args, p0, e_mask, seeds)
+    after = getattr(K, "LAUNCHES" if kernel == "fused_embrace" else
+                    "LAUNCHES_FULLE")
+    assert after == before + 1
+    for t in range(3):
+        o, c = fn(*(a[t] for a in args), p0[t], e_mask[t], seeds[t])
+        assert torch.equal(c, ch[t]) and torch.equal(o, out[t])
+    ones = torch.ones_like(p0)
+    u = torch.zeros(out.shape, device=cuda)
+    d0, _ = K.fused_embrace_reference(*args, ones, e_mask, u)
+    d1, _ = K.fused_embrace_reference(*args, 0 * ones, e_mask, u)
+    torch.testing.assert_close(out, torch.where(ch.bool(), d0, d1),
+                               rtol=tol, atol=tol)
+
+
+def test_population_step_on_the_card_equals_the_cpu(cuda):
+    """``engine.population_step`` of two mixed trials on the card equals
+    the CPU's under ``exact_float32`` (float32 products and cuDNN
+    convolutions with TF32 off, backward included): losses within 1e-5
+    relative, logits and new params within 1e-4 of their largest value
+    (sums in another order; conv biases left out: a BatchNorm follows each
+    conv, so their gradient is 0 but for rounding, and Adam moves them by
+    its lr whatever that rounding is)."""
+    from embracenet_tpu_torch.convert import tree_to_torch
+    from embracenet_tpu_torch.models import layers
+    from embracenet_tpu_torch.ops import optim
+
+    spec, hps, opts, train, _ = _fit_inputs()
+    flat2 = {"FFNN_n_layers": 1, "FFNN_n_units_l0": 32, "CNN_n_layers": 2,
+             "CNN_out_channels_l0": 16, "CNN_kernel_size_l0": 5,
+             "CNN_out_channels_l1": 32, "CNN_kernel_size_l1": 15,
+             "EMBRACENET_embracement_size": 768, "n_post_layers": 0,
+             "selection_probabilities_FFNN": 0.3, "optimizer": "RMSprop",
+             "lr": 1e-3, "weight_decay": 1e-4}
+    hps = hps + [space.params_to_hp("EmbraceNetMultimodal", flat2)]
+    opts = opts + [space.optimizer_hp(flat2)]
+    inits = [spec.init_from_fans(torch.Generator().manual_seed(s),
+                                 spec.fan_ins(h)) for s, h in zip((1, 2), hps)]
+    params = engine.stack_trials([i[0] for i in inits])
+    bn = engine.stack_trials([i[1] for i in inits])
+    statics = dict(engine._resolve_statics(spec, hps, TrainConfig()))
+    y = torch.as_tensor(train["y"][:64])
+    out = []
+    for dev in ("cpu", cuda):
+        p, b = tree_to_torch(params, dev), tree_to_torch(bn, dev)
+        opt_hp = {k: torch.as_tensor(np.asarray([o[k] for o in opts]),
+                                     device=dev) for k in
+                  ("optimizer", "lr", "weight_decay")}
+        opt_hp["lr"] = opt_hp["lr"].float()
+        opt_hp["weight_decay"] = opt_hp["weight_decay"].float()
+        inputs = {"ffnn": torch.as_tensor(train["ffnn"][:64], device=dev),
+                  "cnn": torch.as_tensor(train["cnn"][:64], device=dev)}
+        # no dropout draws: the generators of the two devices differ
+        trials = layers.Trials(hps, layers.stack_hps(hps, dev), None,
+                               layers.Draws([None, None], [64, 64], dev))
+        loss, logits, new_p, _, _ = engine.population_step(
+            spec, p, b, optim.init_state(p, lead=(2,)), trials, opt_hp,
+            inputs, y.to(dev), torch.ones(2, 64, device=dev), None,
+            dict(statics, fused_embrace=False))
+        out.append((loss.cpu(), logits.cpu(), tree_to_torch(new_p, "cpu")))
+    (l_cpu, z_cpu, p_cpu), (l_card, z_card, p_card) = out
+    torch.testing.assert_close(l_card, l_cpu, rtol=1e-5, atol=0)
+    torch.testing.assert_close(z_card, z_cpu, rtol=1e-4,
+                               atol=1e-4 * float(z_cpu.abs().max()))
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", v
+
+    for (name, a), (_, b) in zip(leaves(p_card), leaves(p_cpu)):
+        if not name.rsplit("/", 1)[-1].startswith("conv_b"):
+            torch.testing.assert_close(a, b, rtol=1e-4,
+                                       atol=1e-4 * float(b.abs().max()),
+                                       msg=lambda m, n=name: f"{n}: {m}")

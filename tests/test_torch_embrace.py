@@ -57,8 +57,10 @@ def test_cpu_wrapper_is_reference_and_counts_no_launch(inputs):
     before = tops.LAUNCHES
     out, choose = tops.fused_embrace(x0, x1, w0, b0, w1, b1, p0, e_mask, 11)
     assert tops.LAUNCHES == before
-    u = torch.rand((len(x0), w0.shape[1]),
-                   generator=torch.Generator().manual_seed(11))
+    # uniforms at the live width of e_mask (its 192 kept columns), zeros past
+    u = torch.zeros((len(x0), w0.shape[1]))
+    u[:, :192] = torch.rand((len(x0), 192),
+                            generator=torch.Generator().manual_seed(11))
     want, want_choose = tops.fused_embrace_reference(
         x0, x1, w0, b0, w1, b1, p0, e_mask, u)
     close(out, want, 0)

@@ -230,9 +230,12 @@ def test_population_equals_its_single_trial_fits(rng):
 
 def test_trials_of_padded_per_trial_plans_train_as_alone(rng):
     """Per-trial plans of different shapes (fold-fused CV: 300 and 170
-    train rows, 100 and 60 test rows) stack padded; each trial still walks
-    only its own batches at its own width, so it draws and computes what a
-    fit with its plan alone does, dropout included."""
+    train rows, 100 and 60 test rows) stack padded; each trial still steps
+    through its own batches only and draws at its own width, so it draws
+    and computes what a fit with its plan alone does, dropout included,
+    where that fit's batches run the stack's rows (``plan_rows``: a stacked
+    step runs every trial at the widest plan's rows, and sums over more
+    rows sum in another order)."""
     from embracenet_tpu_torch.training.batching import balanced_plan, shift_plan
 
     (tr_a, te_a), (tr_b, te_b) = _data(rng), _data(rng)
@@ -251,10 +254,12 @@ def test_trials_of_padded_per_trial_plans_train_as_alone(rng):
     fused = engine.fit(SPEC, [hp, hp], [opt, opt], cat, cat_te, cfg,
                        train_plans=plans, eval_plans=evals,
                        init_seeds=init_seeds, run_seeds=run_seeds, device="cpu")
+    rows = (max(p.idx.shape[1] for p in plans), max(p.idx.shape[1] for p in evals))
     for k, (tr, te) in enumerate(((tr_a, te_a), (tr_b, te_b))):
         one = engine.fit(SPEC, [hp], [opt], tr, te, cfg,
                          init_seeds=init_seeds[k:k + 1],
-                         run_seeds=run_seeds[k:k + 1], device="cpu")
+                         run_seeds=run_seeds[k:k + 1], device="cpu",
+                         plan_rows=rows)
         assert fused.auprc_train[k] == one.auprc_train[0]
         assert fused.auprc_test[k] == one.auprc_test[0]
         assert fused.loss_train[k] == one.loss_train[0]

@@ -18,7 +18,12 @@ kernel on or off (n=4000, d=64, one CNN layer, E=1024, batch 1024, bf16,
 on the widest EmbraceNetMultimodal at batch 100 (``chip_smoke.py``'s train
 phase model and data, 1,000 windows), fused and unfused, under
 ``torch.profiler``: device time by kernel family, kernel launches per
-train step, and the device's busy share of the fit's wall.
+train step, and the device's busy share of the fit's wall.  With
+``population=8`` (``--population 8``) it runs the 8-trial population of
+``chip_smoke.py``'s train phase instead: ``bench.py``'s draws (seeds
+0-7), bf16, width buckets, the ``plan_buckets`` groups each one
+``engine.fit`` (one population program a group), and reports its train
+windows/s too.
 
 Prints one JSON line per block size and per engine run, each with the
 card's ``nvidia-smi`` name and power limit; writes them to ``--out`` only
@@ -152,61 +157,102 @@ def engine_bench(fused: bool, n=4000, epochs=10, batch=1024):
             "best_test_auprc": max(res.auprc_test[0])}
 
 
-def train_profile(fused: bool, compute_dtype=None, n_train=1000, batch=100):
-    """Device time of one epoch of ``engine.fit`` on the widest model, by
-    kernel family (``tools/torch_serve_profile.py``'s), with the kernel
-    count per train step and the busy share (summed kernel time over the
-    unprofiled fit's wall)."""
+def train_profile(fused: bool, compute_dtype=None, n_train=1000, batch=100,
+                  population=0):
+    """Device time of one epoch of ``engine.fit`` on the widest model (or
+    on a ``population`` of ``bench.py``'s draws, bf16 with width buckets),
+    by kernel family (``tools/torch_serve_profile.py``'s), with the kernel
+    count per train step (a step of a population program counts once) and
+    the busy share (summed kernel time over the unprofiled fit's wall)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from torch_serve_profile import device_times
+    from torch_serve_profile import device_times, family
     from embracenet_tpu_torch.config import TrainConfig
     from embracenet_tpu_torch.hpo import space
     from embracenet_tpu_torch.training import engine
     from embracenet_tpu_torch.training.batching import balanced_plan, eval_plan
+    from embracenet_tpu_torch.training.bucketing import plan_buckets
     from embracenet_tpu_torch.training.modelspec import get_spec
 
     _card()
     data = make_data(n_train + 200, IN_FEATURES, np.random.default_rng(0))
     train = {k: v[:n_train] for k, v in data.items()}
     test = {k: v[n_train:] for k, v in data.items()}
-    flat = widest_flat_params(0.5)
-    hp = space.params_to_hp("EmbraceNetMultimodal", flat)
     spec = get_spec("EmbraceNetMultimodal", in_features_ffnn=IN_FEATURES)
+    if population:
+        flats = [space.sample_params("EmbraceNetMultimodal",
+                                     np.random.default_rng(i))
+                 for i in range(population)]
+        compute_dtype = compute_dtype or "bfloat16"
+    else:
+        flats = [widest_flat_params(0.5)]
+    hps = [space.params_to_hp("EmbraceNetMultimodal", f) for f in flats]
+    opts = [space.optimizer_hp(f) for f in flats]
+    groups = (plan_buckets(spec, "EmbraceNetMultimodal", hps,
+                           in_features=IN_FEATURES)
+              if population else [[0]])
     cfg = TrainConfig(num_epochs=1, epoch_chunk=1, batch_size=batch,
                       compute_dtype=compute_dtype or "float32",
-                      fused_embrace=fused)
+                      fused_embrace=fused, patience=10_000,
+                      width_buckets=bool(population))
 
     def run():
-        engine.fit(spec, [hp], [space.optimizer_hp(flat)], train, test, cfg)
+        for idxs in groups:
+            engine.fit(spec, [hps[i] for i in idxs], [opts[i] for i in idxs],
+                       train, test, cfg)
         torch.cuda.synchronize()
 
     run()
+    launches0 = K.LAUNCHES
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
+    launches = K.LAUNCHES - launches0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
     dev_ms = device_times(prof)
-    n_kernels = sum(evt.count for evt in prof.key_averages()
-                    if evt.device_type == DeviceType.CUDA)
-    steps = balanced_plan(train["y"], batch, seed=123).idx.shape[0]
-    evals = eval_plan(len(test["y"]), 2 * batch, seed=123).idx.shape[0]
+    n_kernels, by_family = 0, {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            n_kernels += evt.count
+            fam = family(evt.key)
+            by_family[fam] = by_family.get(fam, 0) + evt.count
+    steps = len(groups) * balanced_plan(train["y"], batch, seed=123).idx.shape[0]
+    evals = len(groups) * eval_plan(len(test["y"]), 2 * batch,
+                                    seed=123).idx.shape[0]
     total = sum(dev_ms.values())
     return {"fused": fused, "compute_dtype": compute_dtype or "float32",
+            "trials": len(hps), "groups": groups,
             "train_steps": steps, "eval_batches": evals, "fit_wall_s": wall,
             "ms_per_train_step": 1e3 * wall / steps,
+            "train_windows_per_s": len(hps) * n_train / wall,
+            "fused_launches": launches,
+            "expected_launches": (steps + evals) if fused else 0,
             "device_ms": dev_ms, "device_ms_total": total,
             "busy_share": total / 1e3 / wall,
-            "kernels_per_train_step": n_kernels / steps}
+            "kernels_per_train_step": n_kernels / steps,
+            "kernels_per_train_step_by_family": {
+                k: v / steps for k, v in by_family.items()}}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", help="also write the JSON lines to this file")
+    ap.add_argument("--population", type=int, default=0,
+                    help="only train_profile of a population of this many "
+                    "trials (bf16, width buckets)")
     args = ap.parse_args(argv)
+    if args.population:
+        line = {"train_profile": train_profile(True,
+                                               population=args.population),
+                "card": nvidia_smi()}
+        print(json.dumps(line), flush=True)
+        if args.out:
+            with open(args.out, "w") as fh:
+                fh.write(json.dumps(line) + "\n")
+        return 0
     card = nvidia_smi()
     lines = []
     for B in BLOCK_SIZES:
