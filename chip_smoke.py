@@ -49,8 +49,15 @@ without them.  It
    1024, post layers 512/256, 566 tabular features as HEPG2) from a seeded
    generator, saves it as a checkpoint, and answers 3 ``predict`` requests
    of 10,000 windows on the card through ``load_model``; the kernel must
-   have been launched 3 * ceil(10000 / 4096) = 9 times.  Then it checks
-   ``evaluate``, the fused path against the unfused one at
+   have been launched 3 * ceil(10000 / 4096) = 9 times.  Then the
+   checkpoint's second backend (``checkpoint_case``): the same trees, moved
+   to the card, saved with ``save_checkpoint_orbax`` from the CUDA tensors
+   and loaded back (every leaf and the meta as saved), a ``ReloadedModel``
+   of the loaded trees answers one more request of 10,000 windows with
+   ceil(10000 / 4096) = 3 counted launches, its probabilities equal bit for
+   bit those of ``load_model`` on the npz checkpoint of the same trees; it
+   prints both backends' save and load walls and bytes on disk.  Then it
+   checks ``evaluate``, the fused path against the unfused one at
    selection_probabilities_FFNN in {0, 1}, and the card against the port on
    the CPU on 64 windows;
 4. kernel-fulle phase: holds the full-E kernel (``fused_embrace_fulle``)
@@ -175,7 +182,11 @@ without them.  It
     of the init); launches (one per population forward pass: 19 in every
     fit, meshless or each rank's) and ``row_base`` per rank, aggregate
     train windows/s, the data mesh's ms per step, all-reduces a step and
-    their share (see :func:`mesh_phase`);
+    their share (see :func:`mesh_phase`); after the trial mesh's fit both
+    ranks save its population trees with ``save_checkpoint_orbax(...,
+    mesh=mesh)`` into one directory, which must hold ``.metadata`` and one
+    part per rank, and each rank's ``load_checkpoint_orbax`` must equal the
+    meshless fit's npz checkpoint bit for bit;
 15. path-shape phase: while the serve, train, CV, data, sweep, report,
     CLI and mesh phases run (and in each mesh worker),
     ``ShapeLog`` stands in for ``fused_embrace`` and keeps the inputs and
@@ -216,12 +227,13 @@ from embracenet_tpu_torch.benchkit import (IN_FEATURES, bound, cuda_ms,
                                            widest_lstm_flat_params,
                                            write_raw_dataset)
 from embracenet_tpu_torch.config import CVConfig, TrainConfig
-from embracenet_tpu_torch.convert import tree_leaves, tree_map, tree_to_numpy
+from embracenet_tpu_torch.convert import (tree_leaves, tree_map, tree_to_numpy,
+                                          tree_to_torch)
 from embracenet_tpu_torch.hpo import space
 from embracenet_tpu_torch.hpo.study import Study
 from embracenet_tpu_torch.models import embracenet
 from embracenet_tpu_torch.models.layers import _highest_matmul_precision
-from embracenet_tpu_torch.models.reload import load_model
+from embracenet_tpu_torch.models.reload import ReloadedModel, load_model
 from embracenet_tpu_torch.ops import embrace as K
 from embracenet_tpu_torch.training import engine
 from embracenet_tpu_torch.training.batching import balanced_plan, eval_plan
@@ -229,7 +241,9 @@ from embracenet_tpu_torch.training.bucketing import plan_buckets
 from embracenet_tpu_torch.parallel.mesh import (free_port, init_distributed,
                                                 launch_local, make_mesh)
 from embracenet_tpu_torch.training.checkpoint import (load_checkpoint,
-                                                      save_checkpoint)
+                                                      load_checkpoint_orbax,
+                                                      save_checkpoint,
+                                                      save_checkpoint_orbax)
 from embracenet_tpu_torch.training.cv import checkpoint_name
 from embracenet_tpu_torch.training.modelspec import get_spec
 from embracenet_tpu_torch.training.results import ResultsDict
@@ -709,6 +723,11 @@ def serve_phase(workdir):
     launches = K.LAUNCHES
     want = N_REQUESTS * math.ceil(N_WINDOWS / 4096)
     require(launches == want, f"{launches} kernel launches, expected {want}")
+    ckpt = checkpoint_case({"params": params, "bn_state": bn},
+                           {"model": "EmbraceNetMultimodal",
+                            "model_params": widest_flat_params(0.5)},
+                           requests[0], workdir)
+    launches += ckpt["launches"]
 
     # -- checks and measurements after the counted run --
     model = load_model(paths[0.5])
@@ -734,10 +753,77 @@ def serve_phase(workdir):
         np.testing.assert_allclose(fused[:cpu_rows], cpu, rtol=1e-4, atol=1e-4)
         extremes[p] = {"fused_vs_unfused": float(np.abs(fused - unfused).max()),
                        "card_vs_cpu": float(np.abs(fused[:cpu_rows] - cpu).max())}
-    return {"launches": launches, "request_s": walls,
+    return {"launches": launches, "request_s": walls, "checkpoint": ckpt,
             "windows_per_s_request": [N_WINDOWS / w for w in walls],
             "windows_per_s_model_call": N_WINDOWS / steady,
             "evaluate": metrics, "extremes": extremes}
+
+
+def tree_bytes(path) -> int:
+    """Bytes on disk of a file, or of every file in a directory."""
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def same_trees(got, want) -> bool:
+    """The same nesting, and at every leaf the same dtype, shape and values."""
+    def layout(tree):
+        return tree_map(lambda a: (np.asarray(a).dtype.str, np.shape(a)), tree)
+    return (layout(got) == layout(want)
+            and all(np.array_equal(g, w) for g, w in
+                    zip(tree_leaves(got), tree_leaves(want))))
+
+
+def checkpoint_case(trees, meta, data, workdir):
+    """The checkpoint's second backend on the serving path: ``trees`` moved
+    to the card, saved with ``save_checkpoint_orbax`` from the CUDA
+    tensors and loaded back (every leaf and the meta as saved); a
+    ``ReloadedModel`` of the loaded trees answers ``data`` with
+    ceil(N / 4096) launches of the tiled kernel (counted), and its
+    probabilities equal bit for bit those of ``load_model`` on the npz
+    checkpoint of the same trees.  The DCP import's wall, and both
+    backends' save walls (twice: the second overwrites the first), load
+    wall and bytes on disk."""
+    card = tree_to_torch(trees, "cuda")
+    want = tree_to_numpy(card)
+    path = os.path.join(workdir, "widest")
+    t0 = time.perf_counter()
+    import torch.distributed.checkpoint  # noqa: F401  (the backend's import)
+    loads, walls = {}, {"dcp_import_s": time.perf_counter() - t0}
+    for name, save, load, suffix in (
+            ("dcp", save_checkpoint_orbax, load_checkpoint_orbax, ".orbax"),
+            ("npz", save_checkpoint, load_checkpoint, ".npz")):
+        saves = []
+        for _ in range(2):          # the second save overwrites the first
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save(path, card, meta)
+            saves.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        loads[name] = load(path)
+        walls[name] = {"save_s": saves, "load_s": time.perf_counter() - t0,
+                       "bytes": tree_bytes(path + suffix)}
+    loaded, loaded_meta = loads["dcp"]
+    require(loaded_meta == meta and same_trees(loaded, want),
+            "checkpoint: the DCP backend's load differs from what was saved")
+    n_rows = len(data["y"])
+    K.LAUNCHES = 0
+    model = ReloadedModel(loaded_meta["model"], loaded["params"],
+                          loaded.get("bn_state", {}), loaded_meta["model_params"],
+                          in_features_ffnn=IN_FEATURES)
+    probs = model(data)
+    launches = K.LAUNCHES
+    expect = math.ceil(n_rows / ReloadedModel.BATCH)
+    require(launches == expect, f"checkpoint: the reloaded model launched "
+            f"{launches} kernels, expected {expect}")
+    ref = load_model(path)(data)
+    require(np.array_equal(probs, ref), "checkpoint: the DCP-loaded model's "
+            "probabilities differ from the npz checkpoint's "
+            f"(max {float(np.abs(probs - ref).max())})")
+    out = {"launches": launches, "windows": n_rows, **walls}
+    print(json.dumps({"checkpoint_backends": out}), flush=True)
+    return out
 
 
 def strided_copy(w):
@@ -1776,6 +1862,23 @@ def shard_pair_case(first, second, dev):
             "max_abs_err": float((want - out).abs().max())}
 
 
+def mesh_checkpoint(res, mesh, workdir, ref):
+    """Every rank of ``mesh`` saves the trial mesh's population trees
+    (whole and equal on each rank, equal to the meshless fit's) with
+    ``save_checkpoint_orbax(..., mesh=mesh)`` into one directory of
+    ``workdir``, then loads it alone: its files, and whether the load
+    equals ``ref`` (the npz checkpoint of the meshless fit) bit for bit."""
+    path = os.path.join(workdir, "population_dcp")
+    t0 = time.perf_counter()
+    save_checkpoint_orbax(path, {"params": res.params, "bn_state": res.bn_state},
+                          {"model": "EmbraceNetMultimodal"}, mesh=mesh)
+    t1 = time.perf_counter()
+    got, meta = load_checkpoint_orbax(path)
+    return {"files": sorted(os.listdir(path + ".orbax")),
+            "equal": same_trees(got, ref) and meta == {"model": "EmbraceNetMultimodal"},
+            "save_s": t1 - t0, "load_s": time.perf_counter() - t1}
+
+
 def mesh_worker(workdir) -> int:
     """One of the mesh phase's two ranks (``chip_smoke.py --mesh-worker
     DIR``, started by :func:`mesh_phase`): gloo on this card, a 2 x 1
@@ -1833,6 +1936,8 @@ def mesh_worker(workdir) -> int:
                      "allreduce_calls": reduce_s[1], "device": str(mesh.device),
                      "coords": mesh.coords, "hist": fit_history(res),
                      "params": param_diff(res, ref)}
+        if name == "trial_2x1":
+            out["checkpoint"] = mesh_checkpoint(res, mesh, workdir, ref)
     with open(os.path.join(workdir, f"mesh_rank{rank}.json"), "w") as fh:
         json.dump(out, fh)
     torch.save(shapes.seen, os.path.join(workdir, f"mesh_shapes_rank{rank}.pt"))
@@ -1934,6 +2039,11 @@ def mesh_phase(workdir):
                 f"mesh: rank {r['rank']} of the trial mesh launched "
                 f"{trial['launches']} at rows {trial['row_bases']}, expected "
                 f"{per_trial} at 0")
+        ck = r["checkpoint"]
+        require(ck["files"] == [".metadata", "__0_0.distcp", "__1_0.distcp"]
+                and ck["equal"],
+                f"mesh: rank {r['rank']}'s DCP checkpoint of the trial mesh "
+                f"holds {ck['files']} and loads equal: {ck['equal']}")
         # one sharded step at full width: the data axis' sums agree with
         # the whole batch's to float32 rounding
         st = r["data_step"]
@@ -2003,7 +2113,8 @@ def mesh_phase(workdir):
                              fit_distance(ranks[0]["data_1x2"]["hist"], want),
                              params=ranks[0]["data_1x2"]["params"]["max_abs"]),
                          "max_p": ranks[0]["data_1x2"]["params"]["max_p"]},
-            "ulp_init_vs_meshless": ulp_diff}, records
+            "ulp_init_vs_meshless": ulp_diff,
+            "checkpoint_per_rank": [r["checkpoint"] for r in ranks]}, records
 
 
 def mesh_shard_cases(records, widths, dev):

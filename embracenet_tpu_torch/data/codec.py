@@ -57,11 +57,26 @@ def encode_sequences(seqs, rng: np.random.Generator | int = 0,
     return codes
 
 
+def decode_sequences(codes: np.ndarray) -> list[str]:
+    """Inverse of :func:`encode_sequences` (codes must be in [0, 4))."""
+    table = np.frombuffer(BASE_ORDER.encode(), dtype=np.uint8)
+    return [table[row].tobytes().decode("ascii") for row in np.asarray(codes)]
+
+
 def complement_codes(codes) -> np.ndarray:
     """Complement strand on codes: a<->t, c<->g, i.e. ``3 - code`` (the
     reference's ``reverse_strand`` only complements, `data_pipe/utils.py:327-339`)."""
     codes = np.asarray(codes)
     return (3 - codes.astype(np.int16)).astype(codes.dtype)
+
+
+_COMPLEMENT_TABLE = str.maketrans("acgtn", "tgcan")
+
+
+def complement_strand(sequence: str) -> str:
+    """String-level complement, lower case, ``n -> n``, order kept (the
+    reference's ``reverse_strand``)."""
+    return sequence.lower().translate(_COMPLEMENT_TABLE)
 
 
 def one_hot(codes: torch.Tensor, dtype=torch.float32) -> torch.Tensor:

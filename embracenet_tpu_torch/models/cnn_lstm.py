@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from embracenet_tpu_torch.config import CNN_LSTM_HIDDEN_MENU
 from embracenet_tpu_torch.convert import tree_map
 from embracenet_tpu_torch.models.layers import (
     Draws,
@@ -42,6 +43,8 @@ from embracenet_tpu_torch.models.layers import (
     torch_uniform_init,
 )
 from embracenet_tpu_torch.ops.convmath import CNN_LENGTHS
+
+LSTM_HIDDEN_MENU = CNN_LSTM_HIDDEN_MENU
 
 
 def _lstm_init(generator, input_size, hidden, n_layers):

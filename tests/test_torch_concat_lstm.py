@@ -25,6 +25,7 @@ import pytest
 import torch
 from torch_parity import IN_FEATURES, flat_embracenet, t, to_torch
 
+from embracenet_tpu import config as jconfig
 from embracenet_tpu.data.codec import one_hot as j_one_hot
 from embracenet_tpu.hpo import space as jspace
 from embracenet_tpu.models import cnn_lstm as jcl
@@ -37,6 +38,7 @@ from embracenet_tpu.training import slicing as jslicing
 from embracenet_tpu.training.checkpoint import save_checkpoint as j_save
 from embracenet_tpu.training.modelspec import get_spec as j_get_spec
 from embracenet_tpu_torch import api as tapi
+from embracenet_tpu_torch import config as tconfig
 from embracenet_tpu_torch.config import CVConfig, TrainConfig
 from embracenet_tpu_torch.convert import tree_leaves, tree_map, tree_to_numpy
 from embracenet_tpu_torch.data.codec import one_hot
@@ -204,6 +206,11 @@ def test_cnn_lstm_bf16_casts_only_the_convolutions(rng):
                          torch.bfloat16, tspec.statics([hp]))
     assert l_t.dtype == torch.float32
     close_rel(l_t, l_j, BF16_TOL)
+
+
+def test_lstm_hidden_menu_matches_jax():
+    assert tcl.LSTM_HIDDEN_MENU == jcl.LSTM_HIDDEN_MENU == jconfig.CNN_LSTM_HIDDEN_MENU
+    assert tcl.LSTM_HIDDEN_MENU == tconfig.CNN_LSTM_HIDDEN_MENU
 
 
 def test_cnn_lstm_reshape_flattens_ncw_as_jax():

@@ -1,7 +1,8 @@
 """Tests of the port that need the CUDA card: the fused embrace kernels
 against their plain version, the fused op's gradient on the card against
 the CPU, serving on the card against serving on the CPU, a fit on the
-card and a study's search, a 1 x 1 NCCL mesh, and the kernels' row_base.
+card and a study's search, a 1 x 1 NCCL mesh, the kernels' row_base, and
+the checkpoint's second backend saving tensors on the card.
 They skip without a card.  This file imports neither JAX nor the
 JAX package, so the machine with the card runs it on its own:
 
@@ -570,3 +571,24 @@ def test_population_step_on_the_card_equals_the_cpu(cuda):
             torch.testing.assert_close(a, b, rtol=1e-4,
                                        atol=1e-4 * float(b.abs().max()),
                                        msg=lambda m, n=name: f"{n}: {m}")
+
+
+def test_checkpoint_second_backend_saves_card_tensors(cuda, tmp_path):
+    """``save_checkpoint_orbax`` straight from tensors on the card; the load
+    gives their values, dtypes and shapes (0-d included) on the host."""
+    from embracenet_tpu_torch.training.checkpoint import (load_checkpoint_orbax,
+                                                          save_checkpoint_orbax)
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"params": {"w": torch.randn(64, 32, generator=gen, device=cuda),
+                       "lstm": [{"b": torch.randn(8, generator=gen, device=cuda)}],
+                       "step": torch.tensor(3, dtype=torch.int32, device=cuda)},
+            "bn_state": {}}
+    save_checkpoint_orbax(str(tmp_path / "ck"), tree, {"model": "FFNN"})
+    got, meta = load_checkpoint_orbax(str(tmp_path / "ck"))
+    assert meta == {"model": "FFNN"} and got["bn_state"] == {}
+    for g, w in ((got["params"]["w"], tree["params"]["w"]),
+                 (got["params"]["lstm"][0]["b"], tree["params"]["lstm"][0]["b"]),
+                 (got["params"]["step"], tree["params"]["step"])):
+        assert isinstance(g, np.ndarray) and g.shape == tuple(w.shape)
+        assert torch.equal(torch.from_numpy(g), w.cpu())

@@ -12,6 +12,8 @@ empty and ``NA``, sequences with upper-case bases and ``n``).
 * Tasks, p-values (on scipy and on each package's fallback), preprocessing
   (float64, 1e-12 relative), splits, ``Pipeline`` arrays and its cache in
   both directions, ``synth`` and the native kNN.
+* The codec's string side: ``decode_sequences`` and ``complement_strand``
+  equal the JAX package's on seeded codes and strings.
 * ``train(pipeline=...)`` end to end on the CPU.
 """
 
@@ -187,6 +189,26 @@ def test_runtime_without_a_compiler_takes_the_numpy_path(monkeypatch):
     np.testing.assert_array_equal(
         tcodec.encode_sequences(seqs, 5),
         jcodec.encode_sequences(seqs, 5, native=False))
+
+
+@pytest.mark.parametrize("shape", [(3, 256), (1, 7), (0, 4)])
+def test_decode_sequences_matches_jax_and_inverts_encode(rng, shape):
+    codes = rng.integers(0, 4, size=shape, dtype=np.uint8)
+    got = tcodec.decode_sequences(codes)
+    assert got == jcodec.decode_sequences(codes)
+    if shape[0]:
+        np.testing.assert_array_equal(tcodec.encode_sequences(got), codes)
+
+
+def test_complement_strand_matches_jax(rng):
+    letters = np.array(list("acgtnACGTN"))
+    for n in (0, 1, 17, 256):
+        seq = "".join(rng.choice(letters, size=n))
+        got = tcodec.complement_strand(seq)
+        assert got == jcodec.complement_strand(seq)
+        assert got == got.lower() and len(got) == n
+    # complemented, not reversed; n stays n
+    assert tcodec.complement_strand("AcGtN") == "tgcan"
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,8 @@ reduction in another order: every epoch's AUPRC within 1e-4 (the JAX
 params within 1e-4 x max|p| (Adam turns the rounding noise of a gradient
 that is exactly zero in exact arithmetic, the conv bias under BatchNorm,
 into steps of the learning rate's size), CV scores within 1e-5
-(``__graft_entry__.py:196-198``).
+(``__graft_entry__.py:196-198``).  The checkpoint's DCP backend saves
+from every rank into one directory and loads equal on each.
 """
 
 import json
@@ -222,6 +223,30 @@ def test_only_rank_zero_writes_studies_and_checkpoints(world):
         assert not os.path.exists(out / f"rank{r}" / "mesh")
         assert not os.path.exists(out / f"rank{r}" / "mesh.db")
         assert os.path.exists(out / f"rank{r}" / "plain.db")   # meshless: all
+
+
+def test_every_rank_saves_its_part_of_one_checkpoint_and_loads_it_whole(world):
+    """``save_checkpoint_orbax(mesh=)`` from all 4 ranks with the whole
+    tree: one ``.metadata``, a part per rank, and every rank's load equal
+    to the tree (leaves, dtypes, 0-d leaves, the empty ``bn_state``) and
+    its meta."""
+    for r in world[1]:
+        c = r["checkpoint"]
+        assert c["files"] == [".metadata"] + [f"__{k}_0.distcp"
+                                              for k in range(WORLD)]
+        assert c["equal"] and c["meta"] == {"model": "FFNN"}
+
+
+def test_a_meshless_save_inside_the_world_makes_no_collective(world):
+    """One rank of the initialised world saves and loads with
+    ``mesh=None`` while the others wait: it writes alone and calls no
+    collective of ``torch.distributed``."""
+    alone = [r["checkpoint"]["alone"] for r in world[1]
+             if "alone" in r["checkpoint"]]
+    assert len(alone) == 1
+    assert alone[0]["collectives"] == []
+    assert alone[0]["files"] == [".metadata", "__0_0.distcp"]
+    assert alone[0]["equal"] and alone[0]["meta"] == {"model": "FFNN"}
 
 
 @pytest.mark.parametrize("fn", [K.fused_embrace, K.fused_embrace_fulle])

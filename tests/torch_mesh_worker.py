@@ -5,8 +5,9 @@
 started by ``parallel.mesh.launch_local`` (which sets ``MASTER_ADDR``,
 ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``).  It imports no JAX (the chip
 machine has none, and ``tests/conftest.py`` is not loaded here): it runs
-the port's sharded fits and their meshless counterparts in this process and
-writes ``OUT_DIR/rank{r}.json``, which the test reads.
+the port's sharded fits and their meshless counterparts in this process,
+and the checkpoint's DCP backend across the world, and writes
+``OUT_DIR/rank{r}.json``, which the test reads.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from embracenet_tpu_torch.convert import tree_leaves, tree_to_numpy  # noqa: E40
 from embracenet_tpu_torch.hpo import space  # noqa: E402
 from embracenet_tpu_torch.parallel import mesh as M  # noqa: E402
 from embracenet_tpu_torch.training import engine  # noqa: E402
+from embracenet_tpu_torch.training.checkpoint import (  # noqa: E402
+    load_checkpoint_orbax, save_checkpoint_orbax)
 from embracenet_tpu_torch.training.cv import KfoldCV  # noqa: E402
 from embracenet_tpu_torch.training.modelspec import get_spec  # noqa: E402
 
@@ -186,13 +189,71 @@ def kfold(out_dir, rank):
     return {"plain": plain, "mesh": meshed, "resumed": again}
 
 
+# the torch.distributed calls a save that writes alone must not make
+COLLECTIVES = ("barrier", "all_reduce", "broadcast", "all_gather", "gather",
+               "scatter", "reduce_scatter", "all_to_all", "all_gather_object",
+               "gather_object", "broadcast_object_list", "scatter_object_list")
+
+
+def checkpoint(out_dir, rank):
+    """The second checkpoint backend in this world: every rank saves the
+    whole seeded tree with ``mesh=`` a 4 x 1 mesh into one directory, then
+    loads it alone; then rank 1 alone saves and loads with ``mesh=None``
+    while the others wait at a barrier, counting the collectives it calls."""
+    rng = np.random.default_rng(5)
+    tree = {"params": {f"w{i}": rng.normal(size=(32, 16)).astype(np.float32)
+                       for i in range(4)}
+            | {"lstm": [{"b": rng.normal(size=8).astype(np.float32)}],
+               "steps": np.int32(9), "n": np.arange(5, dtype=np.int32)},
+            "bn_state": {}}
+    meta = {"model": "FFNN"}
+    path = os.path.join(out_dir, "dcp")
+    save_checkpoint_orbax(path, tree, meta, mesh=M.make_mesh(4, 1))
+    got, got_meta = load_checkpoint_orbax(path)
+    out = {"files": sorted(os.listdir(path + ".orbax")),
+           "equal": same_tree(got, tree), "meta": got_meta}
+    torch.distributed.barrier()
+    if rank == 1:
+        calls = []
+        real = {n: getattr(torch.distributed, n) for n in COLLECTIVES}
+        for n, fn in real.items():
+            setattr(torch.distributed, n,
+                    lambda *a, _n=n, _fn=fn, **k: calls.append(_n) or _fn(*a, **k))
+        try:
+            alone = os.path.join(out_dir, "alone")
+            save_checkpoint_orbax(alone, tree, meta)
+            got, got_meta = load_checkpoint_orbax(alone)
+        finally:
+            for n, fn in real.items():
+                setattr(torch.distributed, n, fn)
+        out["alone"] = {"collectives": calls, "equal": same_tree(got, tree),
+                        "meta": got_meta,
+                        "files": sorted(os.listdir(alone + ".orbax"))}
+    torch.distributed.barrier()
+    return out
+
+
+def same_tree(got, want) -> bool:
+    """The same nesting of dicts and lists and, at every leaf, an array of
+    the same dtype, shape and values."""
+    if isinstance(want, dict):
+        return (isinstance(got, dict) and got.keys() == want.keys()
+                and all(same_tree(got[k], want[k]) for k in want))
+    if isinstance(want, list):
+        return (isinstance(got, list) and len(got) == len(want)
+                and all(map(same_tree, got, want)))
+    return (isinstance(got, np.ndarray) and got.dtype == want.dtype
+            and got.shape == want.shape and np.array_equal(got, want))
+
+
 def main():
     out_dir = sys.argv[1]
     torch.set_num_threads(1)
     M.init_distributed(backend="gloo")
     rank = torch.distributed.get_rank()
     result = {"rank": rank, "meshes": meshes(), "ffnn_padded": ffnn_padded(),
-              "embracenet": embracenet_meshes(), "kfold": kfold(out_dir, rank)}
+              "embracenet": embracenet_meshes(), "kfold": kfold(out_dir, rank),
+              "checkpoint": checkpoint(out_dir, rank)}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
         json.dump(result, fh, default=float)
     torch.distributed.destroy_process_group()
