@@ -247,6 +247,7 @@ from embracenet_tpu_torch.training.checkpoint import (load_checkpoint,
 from embracenet_tpu_torch.training.cv import checkpoint_name
 from embracenet_tpu_torch.training.modelspec import get_spec
 from embracenet_tpu_torch.training.results import ResultsDict
+from embracenet_tpu_torch.utils.profiling import counters, reset_counters
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "tools"))
@@ -281,6 +282,11 @@ CV_MODEL, CV_CELL, CV_TASK = "EmbraceNetMultimodal", "HEPG2", "active_E_vs_inact
 def require(cond, what):
     if not cond:
         raise AssertionError(f"chip_smoke: {what}")
+
+
+def fused_launches(name="embrace.launches"):
+    """Launches of a fused kernel since the counters were last reset."""
+    return counters().get(name, 0)
 
 
 def case_inputs(shape, dtype, dev, gen):
@@ -621,13 +627,13 @@ def train_phase():
     cfg = TrainConfig(num_epochs=epochs, epoch_chunk=epochs, batch_size=batch)
 
     # -- the main path: engine.fit on the card, fused kernel on (default) --
-    K.LAUNCHES = 0
+    reset_counters()
     t0 = time.perf_counter()
     res = engine.fit(spec, [hp], [opt], train, test, cfg,
                      init_params=engine.stack_trials([params]),
                      init_bn_state=engine.stack_trials([bn]))
     wall = time.perf_counter() - t0
-    launches = K.LAUNCHES
+    launches = fused_launches()
     n_fwd = epochs * (balanced_plan(train["y"], batch, seed=123).idx.shape[0]
                       + eval_plan(len(test["y"]), 2 * batch, seed=123).idx.shape[0])
     require(launches == n_fwd, f"train: {launches} kernel launches, expected "
@@ -649,14 +655,14 @@ def train_phase():
     pcfg = TrainConfig(num_epochs=1, epoch_chunk=1, batch_size=batch,
                        compute_dtype="bfloat16", patience=10_000,
                        width_buckets=True)
-    pop_launches0 = K.LAUNCHES
+    pop_launches0 = fused_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for idxs in groups:
         engine.fit(spec, [hps[i] for i in idxs], [opts[i] for i in idxs],
                    train, test, pcfg)
     pop_wall = time.perf_counter() - t0
-    pop_launches = K.LAUNCHES - pop_launches0
+    pop_launches = fused_launches() - pop_launches0
     n_tr = balanced_plan(train["y"], batch, seed=123).idx.shape[0]
     n_ev = eval_plan(len(test["y"]), 2 * batch, seed=123).idx.shape[0]
     want = len(groups) * (n_tr + n_ev)
@@ -677,9 +683,9 @@ def train_phase():
 
 
 def bench_phase():
-    K.LAUNCHES_FULLE = 0
+    reset_counters()
     row = bench.block_bench(4096, iters=5)
-    launches = K.LAUNCHES_FULLE
+    launches = fused_launches("embrace.launches_fulle")
     require(launches > 0, "bench: the full-E kernel was never launched")
     eng = bench.engine_bench(True)
     require(eng["kernel_launches"] > 0, "bench: engine_bench(True) launched "
@@ -710,7 +716,7 @@ def serve_phase(workdir):
                 for _ in range(N_REQUESTS)]
 
     # -- the main path: predict requests through load_model, on the card --
-    K.LAUNCHES = 0
+    reset_counters()
     walls = []
     for data in requests:
         t0 = time.perf_counter()
@@ -720,7 +726,7 @@ def serve_phase(workdir):
         require(bool(np.isfinite(probs).all()), "probabilities must be finite")
         require(bool(np.abs(probs.sum(1) - 1).max() <= 1e-5),
                 "probability rows must sum to 1")
-    launches = K.LAUNCHES
+    launches = fused_launches()
     want = N_REQUESTS * math.ceil(N_WINDOWS / 4096)
     require(launches == want, f"{launches} kernel launches, expected {want}")
     ckpt = checkpoint_case({"params": params, "bn_state": bn},
@@ -808,12 +814,12 @@ def checkpoint_case(trees, meta, data, workdir):
     require(loaded_meta == meta and same_trees(loaded, want),
             "checkpoint: the DCP backend's load differs from what was saved")
     n_rows = len(data["y"])
-    K.LAUNCHES = 0
+    reset_counters()
     model = ReloadedModel(loaded_meta["model"], loaded["params"],
                           loaded.get("bn_state", {}), loaded_meta["model_params"],
                           in_features_ffnn=IN_FEATURES)
     probs = model(data)
-    launches = K.LAUNCHES
+    launches = fused_launches()
     expect = math.ceil(n_rows / ReloadedModel.BATCH)
     require(launches == expect, f"checkpoint: the reloaded model launched "
             f"{launches} kernels, expected {expect}")
@@ -948,12 +954,12 @@ class FitLog:
             entry["windows"] += windows_per_epoch * n_ep
             entry["epochs"] += n_ep
 
-        launches0 = K.LAUNCHES
+        launches0 = fused_launches()
         t0 = time.perf_counter()
         res = self.real(spec, hps, opts, data_train, data_test, cfg,
                         chunk_callback=count, **kw)
         entry["wall_s"] = time.perf_counter() - t0   # fit() ends with a fetch
-        entry["launches"] = K.LAUNCHES - launches0
+        entry["launches"] = fused_launches() - launches0
         entry["expected_launches"] = population_launches(
             spec, data_train, data_test, cfg, entry["epochs"], **kw)
         require(entry["launches"] == entry["expected_launches"],
@@ -1024,7 +1030,7 @@ def cv_run(data, workdir, name, log, fuse=False):
     ckdir = os.path.join(workdir, name)
     results = ResultsDict(os.path.join(workdir, f"{name}_results.json"))
     first = len(log.fits)
-    K.LAUNCHES = 0
+    reset_counters()
     t0 = time.perf_counter()
     scores = et.train(CV_MODEL, CV_CELL, CV_TASK, data=data,
                       cv_cfg=CVConfig(n_folds=3, n_trials=3, sampler="TPE",
@@ -1033,7 +1039,7 @@ def cv_run(data, workdir, name, log, fuse=False):
                                             batch_size=100),
                       results=results, storage=storage, checkpoint_dir=ckdir)
     wall = time.perf_counter() - t0
-    return scores, log.fits[first:], wall, K.LAUNCHES, storage, ckdir
+    return scores, log.fits[first:], wall, fused_launches(), storage, ckdir
 
 
 def study_rows(storage):
@@ -1147,11 +1153,11 @@ def cv_phase(workdir):
         engine.fit = log.real
 
     # -- serve the fold-best checkpoint on the card --
-    K.LAUNCHES = 0
+    reset_counters()
     t0 = time.perf_counter()
     probs = et.predict(best, data)
     predict_wall = time.perf_counter() - t0
-    predict_launches = K.LAUNCHES
+    predict_launches = fused_launches()
     require(predict_launches > 0, "cv: predict launched no kernel")
     require(probs.shape == (CV_WINDOWS, 2) and bool(np.isfinite(probs).all())
             and bool(np.abs(probs.sum(1) - 1).max() <= 1e-5),
@@ -1319,7 +1325,7 @@ def data_phase(workdir):
     log = FitLog()
     engine.fit = log
     try:
-        K.LAUNCHES = 0
+        reset_counters()
         t0 = time.perf_counter()
         scores = et.train(CV_MODEL, CV_CELL, DATA_TASK, pipeline=again,
                           cv_cfg=CVConfig(n_folds=2, n_trials=2, sampler="TPE"),
@@ -1328,7 +1334,7 @@ def data_phase(workdir):
                           storage=os.path.join(workdir, "data.db"),
                           checkpoint_dir=os.path.join(workdir, "data_models"))
         cv_wall = time.perf_counter() - t0
-        launches = K.LAUNCHES
+        launches = fused_launches()
     finally:
         engine.fit = log.real
     require([f["kind"] for f in log.fits] == ["search", "retrain"] * 2
@@ -1338,9 +1344,9 @@ def data_phase(workdir):
     require(all(math.isfinite(v) for v in finals), f"data: scores {finals}")
     best = os.path.join(workdir, "data_models",
                         checkpoint_name(CV_CELL, CV_MODEL, DATA_TASK, 0))
-    K.LAUNCHES = 0
+    reset_counters()
     probs = et.predict(best, data)
-    predict_launches = K.LAUNCHES
+    predict_launches = fused_launches()
     require(predict_launches > 0 and probs.shape == (len(data["y"]), 2)
             and bool(np.isfinite(probs).all())
             and bool(np.abs(probs.sum(1) - 1).max() <= 1e-5),
@@ -1385,14 +1391,15 @@ class TrainLog:
         self.real = api.train
 
     def __call__(self, model, cell_line, task, **kw):
-        first, launches0 = len(self.fits.fits), K.LAUNCHES
+        first, launches0 = len(self.fits.fits), fused_launches()
         t0 = time.perf_counter()
         scores = self.real(model, cell_line, task, **kw)
         wall = time.perf_counter() - t0
         fits = self.fits.fits[first:]
         windows = sum(f["windows"] for f in fits)
         self.runs.append({"variant": kw.get("model_label") or model,
-                          "wall_s": wall, "launches": K.LAUNCHES - launches0,
+                          "wall_s": wall,
+                          "launches": fused_launches() - launches0,
                           "fit_launches": [f["launches"] for f in fits],
                           "train_windows": windows,
                           "train_windows_per_s": windows / wall})
@@ -1423,7 +1430,7 @@ def sweep_phase(workdir):
     runs = TrainLog(fits)
     engine.fit, api.train = fits, runs
     try:
-        K.LAUNCHES = 0
+        reset_counters()
         t0 = time.perf_counter()
         results = sweep.run_sweep(
             data_fn=lambda cell, task: data, cells=[CV_CELL], tasks=[CV_TASK],
@@ -1434,7 +1441,7 @@ def sweep_phase(workdir):
             storage=os.path.join(workdir, "sweep.db"), checkpoint_dir=ckdir,
             verbose=False)
         wall = time.perf_counter() - t0
-        launches = K.LAUNCHES
+        launches = fused_launches()
     finally:
         engine.fit, api.train = fits.real, runs.real
     node = results.data[CV_CELL][CV_TASK]
@@ -1502,13 +1509,13 @@ def report_phase(sweep_out, workdir):
     models = ("FFNN", "CNN", "ConcatNetMultimodal", "EmbraceNetMultimodal")
     cmp = report.CompareModelsResult(sweep_out["checkpoint_dir"], n_folds=1)
     trace_dir = os.path.join(workdir, "trace")
-    K.LAUNCHES = 0
+    reset_counters()
     t0 = time.perf_counter()
     with profiling.device_trace(trace_dir) as prof:
         with profiling.annotate("compare_models"):
             res = cmp({CV_CELL: data}, CV_TASK, models=models)
     wall = time.perf_counter() - t0
-    launches = K.LAUNCHES
+    launches = fused_launches()
     require(launches > 0, "report: CompareModelsResult launched no kernel")
     # the same comparison again without the profiler: the trace's cost
     t0 = time.perf_counter()
@@ -1581,12 +1588,12 @@ def cli_phase(workdir, pipe):
 
     def run(name, argv):
         out = io.StringIO()
-        K.LAUNCHES = 0
+        reset_counters()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             rc = cli(argv)
         walls[name] = time.perf_counter() - t0
-        launches[name] = K.LAUNCHES
+        launches[name] = fused_launches()
         require(rc == 0, f"cli: {name} returned {rc}")
         return out.getvalue()
 
@@ -1923,7 +1930,8 @@ def mesh_worker(workdir) -> int:
             engine.fit(spec, hps, opts, train, test, cfg, mesh=mesh)
         else:
             out["data_step"] = sharded_step(spec, hps, opts, train, cfg, mesh)
-        K.LAUNCHES, reduce_s[:] = 0, [0.0, 0]
+        reduce_s[:] = [0.0, 0]
+        reset_counters()
         bases.clear()
         torch.cuda.synchronize()
         dist.barrier()
@@ -1931,7 +1939,7 @@ def mesh_worker(workdir) -> int:
         res = engine.fit(spec, hps, opts, train, test, cfg, mesh=mesh)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        out[name] = {"wall_s": wall, "launches": K.LAUNCHES,
+        out[name] = {"wall_s": wall, "launches": fused_launches(),
                      "row_bases": sorted(bases), "allreduce_s": reduce_s[0],
                      "allreduce_calls": reduce_s[1], "device": str(mesh.device),
                      "coords": mesh.coords, "hist": fit_history(res),
@@ -1974,13 +1982,13 @@ def mesh_phase(workdir):
     windows = len(hps) * cfg.num_epochs * len(train["y"])
 
     def timed_fit(mesh=None, init=(None, None)):
-        K.LAUNCHES = 0
+        reset_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = engine.fit(spec, hps, opts, train, test, cfg, mesh=mesh,
                          init_params=init[0], init_bn_state=init[1])
         torch.cuda.synchronize()
-        return res, time.perf_counter() - t0, K.LAUNCHES
+        return res, time.perf_counter() - t0, fused_launches()
 
     ref, ref_wall, ref_launches = timed_fit()
     require(ref_launches == per_trial,

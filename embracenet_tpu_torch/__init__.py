@@ -27,8 +27,9 @@ The user-facing surface on top of them:
   ``CompareModelsResult`` and ``select_augmented_models``;
 * ``python -m embracenet_tpu_torch`` — the CLI (``preprocess``, ``train``,
   ``sweep``, ``evaluate``, ``parity``; ``--device cpu`` for the CPU);
-* ``utils.profiling`` (``StepTimer``, ``device_trace`` on
-  ``torch.profiler``, ``annotate``) and ``utils.logging.get_logger``;
+* ``utils.profiling`` (the program's spans, ``annotate``, on
+  ``torch.profiler``; its counters, ``count`` / ``counters``; and
+  ``device_trace``) and ``utils.logging.get_logger``;
 * ``examples/torch_quickstart.py`` — the workflow in one script.
 
 Multi-device training (``parallel/mesh.py``): one process per device on

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from embracenet_tpu_torch.convert import tree_map
+from embracenet_tpu_torch.utils.profiling import count
 
 
 def as_dtype(compute_dtype) -> torch.dtype | None:
@@ -175,7 +176,8 @@ class Draws:
     fit draws.  For a ``shard`` of the batch the draw is the whole batch's
     cut to the shard's rows (:func:`rand`).  Each draw is one
     ``torch.rand`` per drawing trial: a draw site costs T small launches
-    (and one to assemble them)."""
+    (and one to assemble them, or a fill and a copy a trial where the
+    shapes differ), counted by the ``draws.launches`` counter."""
 
     def __init__(self, gens, rows, device, shard=None):
         self.gens, self.rows = list(gens), [int(r) for r in rows]
@@ -211,8 +213,11 @@ class Draws:
             rows = b if self.shard is not None else self.rows[t]
             draws.append(rand((rows,) + tuple(own[t]), gen, self.device,
                               self._trial_shard(t)))
+        drawn = sum(d is not None for d in draws)
         if all(d is not None and d.shape == (b,) + out for d in draws):
+            count("draws.launches", drawn + 1)
             return torch.stack(draws)
+        count("draws.launches", 2 * drawn + 1)
         u = torch.zeros((len(self), b) + out, device=self.device)
         for t, d in enumerate(draws):
             if d is not None:
@@ -221,6 +226,7 @@ class Draws:
 
     def scalar(self) -> torch.Tensor:
         """``[T]``: one uniform per drawing trial (0 for the others)."""
+        count("draws.launches", len(self) + 1)
         return torch.stack([
             torch.rand((), generator=g, device=self.device) if g is not None
             else torch.zeros((), device=self.device) for g in self.gens])
@@ -228,6 +234,7 @@ class Draws:
     def seeds(self) -> torch.Tensor:
         """``[T]`` int64 kernel keys, one ``randint`` per drawing trial (as
         the JAX package draws the fused kernel's seed from its key)."""
+        count("draws.launches", len(self) + 1)
         return torch.stack([
             torch.randint(0, 2 ** 31 - 1, (), generator=g, device=self.device)
             if g is not None else torch.zeros((), dtype=torch.int64,

@@ -7,7 +7,11 @@ returns class probabilities (or raw logits).
 
 The model lives on one explicit device (the card by default) and runs as
 a population of one trial (``spec.apply_trials``; its hyperparameters are
-stacked on the device once, so a request copies nothing but its data).  For
+stacked on the device once, so a request copies nothing but its data).
+A request is the span ``reload.request``, with ``reload.copy_in``, one
+``reload.microbatch`` a micro-batch and ``reload.copy_out`` inside it; the
+counters ``reload.rows_real`` and ``reload.rows_run`` add its rows and the
+rows it computes, padding included (``utils.profiling``).  For
 EmbraceNetMultimodal, ``fused_embrace=True`` (the default) runs docking +
 embracement in the fused CUDA kernel; ``fused_embrace=False`` keeps the
 unfused path, the JAX package's serving default.
@@ -34,6 +38,7 @@ from embracenet_tpu_torch.models.layers import Trials, stack_hps
 from embracenet_tpu_torch.training.checkpoint import (_LIST_MARK, load_checkpoint,
                                                      restore_lists)
 from embracenet_tpu_torch.training.modelspec import get_spec
+from embracenet_tpu_torch.utils.profiling import annotate, count, spanned
 
 _SEP = "__"  # buffer names may not contain "."
 
@@ -104,29 +109,35 @@ class ReloadedModel(nn.Module):
                 out[key] = torch.from_numpy(a).to(self.device)
         return out
 
+    @spanned("reload.request")
     @torch.inference_mode()
     def forward(self, data: dict, logits: bool = False) -> np.ndarray:
         """-> class probabilities [N, 2] (or raw logits), micro-batched; the
         dataset is copied to the device once and sliced there."""
-        key = "ffnn" if "ffnn" in self.spec.inputs else "cnn"
-        n = len(np.asarray(data[key]))
-        n_pad = -(-max(n, 1) // self.BATCH) * self.BATCH
-        dev = self._device_data(data, n_pad)
+        with annotate("reload.copy_in"):
+            key = "ffnn" if "ffnn" in self.spec.inputs else "cnn"
+            n = len(np.asarray(data[key]))
+            n_pad = -(-max(n, 1) // self.BATCH) * self.BATCH
+            dev = self._device_data(data, n_pad)
+        count("reload.rows_real", n)
+        count("reload.rows_run", n_pad)
         # a population of one: the trial axis is a view
         params, bn_state = (tree_map(lambda a: a[None], t)
                             for t in (self.params, self.bn_state))
         chunks = []
         for lo in range(0, n_pad, self.BATCH):
-            inputs = {k: v[lo:lo + self.BATCH] for k, v in dev.items()}
-            out, _ = self.spec.apply_trials(params, bn_state, self.trials,
-                                            inputs, False, None,
-                                            self.compute_dtype, self.statics,
-                                            seed=self.seed)
-            chunks.append(out[0])
-        raw = torch.cat(chunks)[:n].float()
-        if not logits:
-            raw = torch.softmax(raw, dim=-1)
-        return raw.cpu().numpy()
+            with annotate("reload.microbatch"):
+                inputs = {k: v[lo:lo + self.BATCH] for k, v in dev.items()}
+                out, _ = self.spec.apply_trials(params, bn_state, self.trials,
+                                                inputs, False, None,
+                                                self.compute_dtype,
+                                                self.statics, seed=self.seed)
+                chunks.append(out[0])
+        with annotate("reload.copy_out"):
+            raw = torch.cat(chunks)[:n].float()
+            if not logits:
+                raw = torch.softmax(raw, dim=-1)
+            return raw.cpu().numpy()
 
     def predict_proba_positive(self, data: dict) -> np.ndarray:
         return self(data)[:, 1]

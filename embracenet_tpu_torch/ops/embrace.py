@@ -29,8 +29,9 @@ activations never reach device memory.
 * :func:`fused_embrace_reference` is the plain PyTorch version with the
   uniforms ``u`` given: the tests and ``chip_smoke.py`` hold both kernels
   against it.
-* ``LAUNCHES`` and ``LAUNCHES_FULLE`` count kernel launches, so a run can
-  show that its path went through the kernel.
+* the counters ``embrace.launches`` and ``embrace.launches_fulle``
+  (``utils.profiling.counters``) count kernel launches, so a run can show
+  that its path went through the kernel.
 
 Both take a population: with a leading trial axis (x0 ``[T, B, D0]``, x1
 ``[T, B, D1]``, w0 ``[T, D0, E]``, w1 ``[T, D1, E]``, b0, b1, e_mask
@@ -82,16 +83,13 @@ from typing import NamedTuple
 
 import torch
 
+from embracenet_tpu_torch.utils.profiling import count
+
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "embrace.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-#: kernel launches made by :func:`fused_embrace` (one per CUDA call)
-LAUNCHES = 0
-#: kernel launches made by :func:`fused_embrace_fulle`
-LAUNCHES_FULLE = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
@@ -527,11 +525,10 @@ class FusedEmbrace(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x0, x1, w0, b0, w1, b1, p0, e_mask, seed, row_base=0):
-        global LAUNCHES
         out, choose = _forward("embrace_fused_fwd", x0, x1, w0, b0, w1, b1,
                                p0, e_mask, seed, row_base)
         if out.is_cuda:
-            LAUNCHES += 1
+            count("embrace.launches")
         ctx.save_for_backward(x0, x1, w0, w1, e_mask, choose, out)
         ctx.mark_non_differentiable(choose)
         return out, choose
@@ -572,7 +569,6 @@ def fused_embrace_fulle(x0, x1, w0, b0, w1, b1, p0, e_mask, seed, row_base=0):
     only, as the JAX ``_fused_fwd_fulle``: it raises where autograd would
     need a gradient of it, instead of returning an output that trains
     nothing."""
-    global LAUNCHES_FULLE
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x0, x1, w0, b0, w1, b1)):
         raise RuntimeError("fused_embrace_fulle is forward only; use "
@@ -580,5 +576,5 @@ def fused_embrace_fulle(x0, x1, w0, b0, w1, b1, p0, e_mask, seed, row_base=0):
     out, choose = _forward("embrace_fused_fwd_fulle", x0, x1, w0, b0, w1, b1,
                            p0, e_mask, seed, row_base)
     if out.is_cuda:
-        LAUNCHES_FULLE += 1
+        count("embrace.launches_fulle")
     return out, choose

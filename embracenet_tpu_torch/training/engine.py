@@ -39,6 +39,17 @@ for its parameter init, a run seed a numpy generator that gives every batch
 step of the trial its forward seed, the seed of the step's generator of
 that trial.  Same distributions as the JAX package, different streams.
 
+Spans and counters (``utils.profiling``; spans record only inside a torch
+profile): ``engine.fit`` holds ``engine.fit.setup`` (everything before the
+first step: the host init, the stack, every copy to the device, the
+plans), one ``engine.step`` a stacked train step (``engine.step.gather``,
+``engine.step.draws`` and, in :func:`population_step`,
+``engine.forward``, ``engine.backward`` and ``engine.update``), one
+``engine.eval`` an epoch's evaluation and one ``engine.fetch`` a chunk's
+metric fetch and host bookkeeping.  The counters ``engine.train_steps``
+and ``engine.to_device_bytes`` count the stacked train steps and the bytes
+a fit copies to its device.
+
 Under a mesh (``parallel/mesh.py``) each rank trains its block of the
 population (the trial axes) on its columns of every batch (the 'data'
 axis).  The population is padded to the trial axes with copies of its last
@@ -75,6 +86,7 @@ from embracenet_tpu_torch.parallel.mesh import (BatchShard, batch_sharding,
 from embracenet_tpu_torch.training import slicing
 from embracenet_tpu_torch.training.batching import balanced_plan, eval_plan
 from embracenet_tpu_torch.training.modelspec import ModelSpec
+from embracenet_tpu_torch.utils.profiling import annotate, count, spanned
 
 
 @dataclasses.dataclass
@@ -181,18 +193,26 @@ def _resolve_statics(spec: ModelSpec, hp_list, cfg: TrainConfig) -> dict:
     return statics
 
 
+def _to_device(tree, device):
+    """``tree`` (tensors or numpy arrays) as tensors on ``device``, every
+    leaf a copy of its own, its bytes added to the
+    ``engine.to_device_bytes`` counter whatever the device."""
+    out = tree_map(lambda a: torch.as_tensor(a).to(device, copy=True)
+                   .contiguous(), tree)
+    count("engine.to_device_bytes", sum(a.nbytes for a in tree_leaves(out)))
+    return out
+
+
 def _device_data(data, spec: ModelSpec, device):
     """The split's arrays as tensors on the device (the JAX engine also pads
     the rows to a bucket of 512 to reuse compiled programs; eager PyTorch
     has none to reuse)."""
-    out = {"y": torch.as_tensor(np.asarray(data["y"], np.int64), device=device)}
+    out = {"y": np.asarray(data["y"], np.int64)}
     if "ffnn" in spec.inputs:
-        out["ffnn"] = torch.as_tensor(np.asarray(data["ffnn"], np.float32),
-                                      device=device)
+        out["ffnn"] = np.asarray(data["ffnn"], np.float32)
     if "cnn" in spec.inputs:
-        out["cnn"] = torch.as_tensor(np.asarray(data["cnn"], np.uint8),
-                                     device=device)
-    return out
+        out["cnn"] = np.asarray(data["cnn"], np.uint8)
+    return _to_device(out, device)
 
 
 def _pad_plan(plan, n_batches: int, width: int):
@@ -216,8 +236,8 @@ def _stack_plans(ps, device, n_data: int = 1, rows: int = 0):
     nb = max(p.idx.shape[0] for p in ps)
     bw = max(-(-max(p.idx.shape[1], rows) // n_data) * n_data for p in ps)
     padded = [_pad_plan(p, nb, bw) for p in ps]
-    return (torch.as_tensor(np.stack([p[0] for p in padded]), device=device),
-            torch.as_tensor(np.stack([p[1] for p in padded]), device=device))
+    return _to_device((np.stack([p[0] for p in padded]),
+                       np.stack([p[1] for p in padded])), device)
 
 
 def _gather(data, idx, spec: ModelSpec):
@@ -263,21 +283,25 @@ def population_step(spec: ModelSpec, params, bn_state, opt_state, trials,
     # the backward pass too in full float32: cuDNN would take its
     # convolutions' and LSTM's gradients in TF32 outside this context
     with exact_float32():
-        logits, new_bn = spec.apply_trials(live, bn_state, trials, inputs,
-                                           True, mask, compute_dtype, statics,
-                                           shard)
-        loss = losses.weighted_cross_entropy(logits, y, mask, shard=shard)
-        grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
-    if shard is not None:
-        grads = _sum_grads(shard, grads)
-        loss = shard.sum(loss.detach())
-    new_params, new_opt = optim.apply_update(
-        params, tree_unflatten(params, grads), opt_state, opt_hp["optimizer"],
-        opt_hp["lr"], opt_hp["weight_decay"], upd)
-    new_bn = tree_map(torch.Tensor.detach, new_bn)
-    if upd is not None:
-        new_bn = tree_map(lambda n, o: torch.where(
-            upd.reshape((-1,) + (1,) * (o.dim() - 1)), n, o), new_bn, bn_state)
+        with annotate("engine.forward"):
+            logits, new_bn = spec.apply_trials(live, bn_state, trials, inputs,
+                                               True, mask, compute_dtype,
+                                               statics, shard)
+            loss = losses.weighted_cross_entropy(logits, y, mask, shard=shard)
+        with annotate("engine.backward"):
+            grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
+    with annotate("engine.update"):
+        if shard is not None:
+            grads = _sum_grads(shard, grads)
+            loss = shard.sum(loss.detach())
+        new_params, new_opt = optim.apply_update(
+            params, tree_unflatten(params, grads), opt_state,
+            opt_hp["optimizer"], opt_hp["lr"], opt_hp["weight_decay"], upd)
+        new_bn = tree_map(torch.Tensor.detach, new_bn)
+        if upd is not None:
+            new_bn = tree_map(lambda n, o: torch.where(
+                upd.reshape((-1,) + (1,) * (o.dim() - 1)), n, o), new_bn,
+                bn_state)
     return loss.detach(), logits.detach(), new_params, new_bn, new_opt
 
 
@@ -324,9 +348,11 @@ def _gather_population(mesh, trees, n_real: int, device):
     """Every trial block's trees (stacked over its trials), concatenated in
     trial order on every rank and cut to the real population."""
     blocks = gather_trials(mesh, tree_map(lambda a: a.detach().cpu(), trees))
-    return tree_map(lambda *xs: torch.cat(xs)[:n_real].to(device), *blocks)
+    return _to_device(tree_map(lambda *xs: torch.cat(xs)[:n_real], *blocks),
+                      device)
 
 
+@spanned("engine.fit")
 def fit(spec: ModelSpec,
         hp_list: list,
         opt_list: list,
@@ -380,138 +406,146 @@ def fit(spec: ModelSpec,
     fit with the same arguments; it trains on the mesh's device, and its
     result holds the whole real population on every rank.
     """
-    mesh = resolve_mesh(mesh, device)
-    dev = mesh.device if mesh is not None else resolve_device(device)
-    n_real = len(hp_list)
-    if train_plans is not None and cfg.eval_reshuffle:
-        raise ValueError("per-trial plans and eval_reshuffle are exclusive "
-                         "(use the sequential per-fold path for strict "
-                         "reference eval-shuffle parity)")
-    if (train_plans is None) != (eval_plans is None):
-        raise ValueError("train_plans and eval_plans go together")
-    if train_plans is not None and (len(train_plans) != n_real
-                                    or len(eval_plans) != n_real):
-        raise ValueError("per-trial plans must match the population size")
-    s_init, s_run = seed_streams(cfg.seed if seed is None else seed, n_real)
-    init_seeds = s_init if init_seeds is None else np.asarray(init_seeds)
-    run_seeds = s_run if run_seeds is None else np.asarray(run_seeds)
-    n_data = 1
-    if mesh is not None:
-        # pad the population to the trial axes with copies of its last
-        # trial (same statics, so the real trials train as without it);
-        # results are cut back to the real population
-        pad = (-n_real) % trial_device_count(mesh)
-        (hp_list, opt_list, init_seeds, run_seeds, train_plans, eval_plans), \
-            (init_params, init_bn_state) = _pad_population(
+    with annotate("engine.fit.setup"):
+        mesh = resolve_mesh(mesh, device)
+        dev = mesh.device if mesh is not None else resolve_device(device)
+        n_real = len(hp_list)
+        if train_plans is not None and cfg.eval_reshuffle:
+            raise ValueError("per-trial plans and eval_reshuffle are "
+                             "exclusive (use the sequential per-fold path "
+                             "for strict reference eval-shuffle parity)")
+        if (train_plans is None) != (eval_plans is None):
+            raise ValueError("train_plans and eval_plans go together")
+        if train_plans is not None and (len(train_plans) != n_real
+                                        or len(eval_plans) != n_real):
+            raise ValueError("per-trial plans must match the population "
+                             "size")
+        s_init, s_run = seed_streams(cfg.seed if seed is None else seed,
+                                     n_real)
+        init_seeds = s_init if init_seeds is None else np.asarray(init_seeds)
+        run_seeds = s_run if run_seeds is None else np.asarray(run_seeds)
+        n_data = 1
+        if mesh is not None:
+            # pad the population to the trial axes with copies of its last
+            # trial (same statics, so the real trials train as without it);
+            # results are cut back to the real population
+            pad = (-n_real) % trial_device_count(mesh)
+            (hp_list, opt_list, init_seeds, run_seeds, train_plans,
+             eval_plans), (init_params, init_bn_state) = _pad_population(
                 pad, (hp_list, opt_list, init_seeds, run_seeds, train_plans,
                       eval_plans), (init_params, init_bn_state))
-        n_data = mesh.shape["data"]
-    n_trials = len(hp_list)            # the padded population
-    compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
-    state_dtype = torch.bfloat16 if cfg.optim_dtype == "bfloat16" else None
-    use_master = cfg.param_dtype == "bfloat16"
-    statics = _resolve_statics(spec, hp_list, cfg)
-    shrunk = slicing.has_width_statics(statics)
-    # this rank's trials (all of them without a mesh)
-    hps, opts, my_init_seeds, my_run_seeds = shard_population(
-        mesh, hp_list, opt_list, init_seeds, run_seeds)
-    n_local = len(hps)
+            n_data = mesh.shape["data"]
+        n_trials = len(hp_list)            # the padded population
+        compute_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+                         else None)
+        state_dtype = (torch.bfloat16 if cfg.optim_dtype == "bfloat16"
+                       else None)
+        use_master = cfg.param_dtype == "bfloat16"
+        statics = _resolve_statics(spec, hp_list, cfg)
+        shrunk = slicing.has_width_statics(statics)
+        # this rank's trials (all of them without a mesh)
+        hps, opts, my_init_seeds, my_run_seeds = shard_population(
+            mesh, hp_list, opt_list, init_seeds, run_seeds)
+        n_local = len(hps)
 
-    # population init: trial by trial from its own generator, on the host
-    # (the same numbers on either device), then one copy to the device; a
-    # family without fan-ins (CNN_LSTM: shapes follow the trial) inits
-    # from its hyperparameters
-    if init_params is None:
-        def init_one(seed_, hp):
-            gen = torch.Generator().manual_seed(int(seed_))
-            if spec.init_from_fans is None:
-                return spec.init(gen, hp)
-            return spec.init_from_fans(gen, spec.fan_ins(hp))
+        # population init: trial by trial from its own generator, on the
+        # host (the same numbers on either device), then one copy to the
+        # device; a family without fan-ins (CNN_LSTM: shapes follow the
+        # trial) inits from its hyperparameters
+        if init_params is None:
+            def init_one(seed_, hp):
+                gen = torch.Generator().manual_seed(int(seed_))
+                if spec.init_from_fans is None:
+                    return spec.init(gen, hp)
+                return spec.init_from_fans(gen, spec.fan_ins(hp))
 
-        inits = [init_one(s, hp) for s, hp in zip(my_init_seeds, hps)]
-        params = stack_trials([i[0] for i in inits])
-        bn_state = stack_trials([i[1] for i in inits])
-    else:
-        params, bn_state = shard_population(
-            mesh, tree_to_torch(init_params, "cpu"),
-            tree_to_torch(init_bn_state or {}, "cpu"))
-    params = tree_to_torch(params, "cpu")
-    bn_state = tree_to_torch(bn_state or {}, "cpu")
-    if shrunk:
-        params, bn_state = slicing.shrink(spec.name, params, bn_state, statics)
-    params = tree_map(lambda a: a.to(dev, copy=True).contiguous(), params)
-    bn_state = tree_map(lambda a: a.to(dev, copy=True).contiguous(), bn_state)
-    opt_state = optim.init_state(params, state_dtype, use_master,
-                                 lead=(n_local,))
-    if use_master:
-        params = tree_map(lambda a: a.to(torch.bfloat16), params)
+            inits = [init_one(s, hp) for s, hp in zip(my_init_seeds, hps)]
+            params = stack_trials([i[0] for i in inits])
+            bn_state = stack_trials([i[1] for i in inits])
+        else:
+            params, bn_state = shard_population(
+                mesh, tree_to_torch(init_params, "cpu"),
+                tree_to_torch(init_bn_state or {}, "cpu"))
+        params = tree_to_torch(params, "cpu")
+        bn_state = tree_to_torch(bn_state or {}, "cpu")
+        if shrunk:
+            params, bn_state = slicing.shrink(spec.name, params, bn_state,
+                                              statics)
+        params, bn_state = _to_device((params, bn_state), dev)
+        opt_state = optim.init_state(params, state_dtype, use_master,
+                                     lead=(n_local,))
+        if use_master:
+            params = tree_map(lambda a: a.to(torch.bfloat16), params)
 
-    opt_hp = {k: torch.as_tensor(np.asarray([o[k] for o in opts]), device=dev)
-              for k in ("optimizer", "lr", "weight_decay")}
-    opt_hp["lr"] = opt_hp["lr"].float()
-    opt_hp["weight_decay"] = opt_hp["weight_decay"].float()
+        opt_hp = _to_device({k: np.asarray([o[k] for o in opts]) for k in
+                             ("optimizer", "lr", "weight_decay")}, dev)
+        opt_hp["lr"] = opt_hp["lr"].float()
+        opt_hp["weight_decay"] = opt_hp["weight_decay"].float()
 
-    train_data = _device_data(data_train, spec, dev)
-    test_data = _device_data(data_test, spec, dev)
-    n_test = len(np.asarray(data_test["y"]))
-    if train_plans is None:
-        all_plans = [balanced_plan(np.asarray(data_train["y"]), cfg.batch_size,
-                                   seed=123)]
-        all_tplans = [eval_plan(n_test, cfg.batch_size * 2, seed=123)]
-        plans, tplans = all_plans, all_tplans
-    else:
-        all_plans, all_tplans = list(train_plans), list(eval_plans)
-        plans, tplans = shard_population(mesh, all_plans, all_tplans)
+        train_data = _device_data(data_train, spec, dev)
+        test_data = _device_data(data_test, spec, dev)
+        n_test = len(np.asarray(data_test["y"]))
+        if train_plans is None:
+            all_plans = [balanced_plan(np.asarray(data_train["y"]),
+                                       cfg.batch_size, seed=123)]
+            all_tplans = [eval_plan(n_test, cfg.batch_size * 2, seed=123)]
+            plans, tplans = all_plans, all_tplans
+        else:
+            all_plans, all_tplans = list(train_plans), list(eval_plans)
+            plans, tplans = shard_population(mesh, all_plans, all_tplans)
 
-    def _div_vec(ps):
-        d = np.asarray([p.metric_divisor for p in ps], np.float32)
-        return np.broadcast_to(d, (n_trials,)).copy() if len(ps) == 1 else d
+        def _div_vec(ps):
+            d = np.asarray([p.metric_divisor for p in ps], np.float32)
+            return (np.broadcast_to(d, (n_trials,)).copy() if len(ps) == 1
+                    else d)
 
-    train_div = _div_vec(all_plans)    # [n_trials], read on the host
-    eval_div = _div_vec(all_tplans)
-    eval_div_dev = torch.as_tensor(shard_population(mesh, eval_div)[0],
-                                   device=dev)
+        train_div = _div_vec(all_plans)    # [n_trials], read on the host
+        eval_div = _div_vec(all_tplans)
+        eval_div_dev = _to_device(shard_population(mesh, eval_div)[0], dev)
 
-    plan_idx, plan_mask = _stack_plans(plans, dev, n_data, plan_rows[0])
-    # each trial's own plan shape [nb, bw]: in a padded stack (fold-fused
-    # plans) a trial steps through its own batches only (past them it is
-    # frozen and draws nothing) and draws at its own width, so it draws
-    # what the fit that had its plan alone draws
-    train_dims = [p.idx.shape for p in plans] * (n_local if len(plans) == 1 else 1)
-    eval_rows = max([p.idx.shape[1] for p in tplans] + [plan_rows[1]])
-    if cfg.eval_reshuffle:
-        # the reference reshuffles its test loader every epoch
-        # (training_models.py:477); every epoch's plan goes to the device
-        # now, so no chunk waits for a copy
-        eval_plans_by_epoch = [
-            _stack_plans([eval_plan(n_test, cfg.batch_size * 2, seed=123 + ep)],
-                         dev, n_data, plan_rows[1])
-            for ep in range(cfg.num_epochs)]
-    else:
-        eval_plans_by_epoch = [_stack_plans(tplans, dev, n_data,
-                                            plan_rows[1])] * cfg.num_epochs
-    plan_has_rows = plan_mask.sum(-1) > 0                    # [P, nb]
+        plan_idx, plan_mask = _stack_plans(plans, dev, n_data, plan_rows[0])
+        # each trial's own plan shape [nb, bw]: in a padded stack (fold-fused
+        # plans) a trial steps through its own batches only (past them it
+        # is frozen and draws nothing) and draws at its own width, so it
+        # draws what the fit that had its plan alone draws
+        train_dims = ([p.idx.shape for p in plans]
+                      * (n_local if len(plans) == 1 else 1))
+        eval_rows = max([p.idx.shape[1] for p in tplans] + [plan_rows[1]])
+        if cfg.eval_reshuffle:
+            # the reference reshuffles its test loader every epoch
+            # (training_models.py:477); every epoch's plan goes to the
+            # device now, so no chunk waits for a copy
+            eval_plans_by_epoch = [
+                _stack_plans([eval_plan(n_test, cfg.batch_size * 2,
+                                        seed=123 + ep)],
+                             dev, n_data, plan_rows[1])
+                for ep in range(cfg.num_epochs)]
+        else:
+            eval_plans_by_epoch = [_stack_plans(
+                tplans, dev, n_data, plan_rows[1])] * cfg.num_epochs
+        plan_has_rows = plan_mask.sum(-1) > 0                    # [P, nb]
 
-    def cols(bw):
-        """This rank's columns of a plan row of width ``bw`` (the 'data'
-        axis' share of it, padded to its multiple) and their shard."""
-        if n_data == 1:
-            return slice(0, bw), None
-        c = batch_sharding(mesh, bw)
-        return c, BatchShard(c.start, bw, n_data, mesh.group("data"))
+        def cols(bw):
+            """This rank's columns of a plan row of width ``bw`` (the 'data'
+            axis' share of it, padded to its multiple) and their shard."""
+            if n_data == 1:
+                return slice(0, bw), None
+            c = batch_sharding(mesh, bw)
+            return c, BatchShard(c.start, bw, n_data, mesh.group("data"))
 
-    # the population's hyperparameters on the device, and the statics each
-    # trial's fit alone would have (the shapes it draws at)
-    hp_dev = stack_hps(hps, dev)
-    own = [_resolve_statics(spec, [hp], cfg) for hp in hps]
-    tr_cols, tr_shard = cols(max([w for _, w in train_dims] + [plan_rows[0]]))
-    ev_cols, ev_shard = cols(eval_rows)
-    eval_trials = Trials(hps, hp_dev, own)
-    run_rngs = [np.random.default_rng(int(s)) for s in my_run_seeds]
-    es = (torch.full((n_local,), -float("inf"), device=dev),   # best score
-          torch.zeros(n_local, dtype=torch.int32, device=dev),  # counter
-          torch.zeros(n_local, dtype=torch.bool, device=dev),   # stopped
-          torch.zeros(n_local, dtype=torch.int32, device=dev))  # epochs run
+        # the population's hyperparameters on the device, and the statics
+        # each trial's fit alone would have (the shapes it draws at)
+        hp_dev = _to_device(stack_hps(hps), dev)
+        own = [_resolve_statics(spec, [hp], cfg) for hp in hps]
+        tr_cols, tr_shard = cols(max([w for _, w in train_dims]
+                                     + [plan_rows[0]]))
+        ev_cols, ev_shard = cols(eval_rows)
+        eval_trials = Trials(hps, hp_dev, own)
+        run_rngs = [np.random.default_rng(int(s)) for s in my_run_seeds]
+        es = (torch.full((n_local,), -float("inf"), device=dev),   # best score
+              torch.zeros(n_local, dtype=torch.int32, device=dev),  # counter
+              torch.zeros(n_local, dtype=torch.bool, device=dev),   # stopped
+              torch.zeros(n_local, dtype=torch.int32, device=dev))  # epochs run
 
     def rows_of(idx, mask, data):
         """A plan row's inputs, targets and [T, bw] mask: one gather for
@@ -527,26 +561,34 @@ def fit(spec: ModelSpec,
         zeros = torch.zeros(n_local, device=dev)
         tr_loss, tr_auprc, te_auprc, te_f1 = zeros, zeros, zeros, 0.0
         for b in range(plan_idx.shape[1]):
-            inputs, y, mask = rows_of(plan_idx[:, b, tr_cols],
-                                      plan_mask[:, b, tr_cols], train_data)
-            # each trial's generator for this step (its run stream's next
-            # seed); a trial past its own plan draws nothing
-            gens = [torch.Generator(dev).manual_seed(
-                        int(rng.integers(0, 2 ** 31 - 1))) if b < nb else None
-                    for rng, (nb, _) in zip(run_rngs, train_dims)]
-            trials = Trials(hps, hp_dev, own,
-                            Draws(gens, [w for _, w in train_dims], dev,
-                                  tr_shard))
-            # freeze stopped trials and fully masked (or padding) batches
-            upd = active & plan_has_rows[:, b]
-            loss, logits, params, bn_state, opt_state = population_step(
-                spec, params, bn_state, opt_state, trials, opt_hp, inputs, y,
-                mask, compute_dtype, statics, tr_shard, upd)
-            # running sums, a batch at a time: a trial's sums do not depend
-            # on how many batches the other trials' plans have
-            tr_loss = tr_loss + loss
-            tr_auprc = tr_auprc + _auprc_of(cfg, logits, y, mask, tr_shard)
-        with torch.no_grad():
+            with annotate("engine.step"):
+                with annotate("engine.step.gather"):
+                    inputs, y, mask = rows_of(plan_idx[:, b, tr_cols],
+                                              plan_mask[:, b, tr_cols],
+                                              train_data)
+                # each trial's generator for this step (its run stream's
+                # next seed); a trial past its own plan draws nothing
+                with annotate("engine.step.draws"):
+                    gens = [torch.Generator(dev).manual_seed(
+                                int(rng.integers(0, 2 ** 31 - 1)))
+                            if b < nb else None
+                            for rng, (nb, _) in zip(run_rngs, train_dims)]
+                    trials = Trials(hps, hp_dev, own,
+                                    Draws(gens, [w for _, w in train_dims],
+                                          dev, tr_shard))
+                # freeze stopped trials and fully masked (or padding)
+                # batches
+                upd = active & plan_has_rows[:, b]
+                count("engine.train_steps")
+                loss, logits, params, bn_state, opt_state = population_step(
+                    spec, params, bn_state, opt_state, trials, opt_hp, inputs,
+                    y, mask, compute_dtype, statics, tr_shard, upd)
+                # running sums, a batch at a time: a trial's sums do not
+                # depend on how many batches the other trials' plans have
+                tr_loss = tr_loss + loss
+                tr_auprc = tr_auprc + _auprc_of(cfg, logits, y, mask,
+                                                tr_shard)
+        with torch.no_grad(), annotate("engine.eval"):
             for b in range(t_idx.shape[1]):
                 inputs, y, mask = rows_of(t_idx[:, b, ev_cols],
                                           t_mask[:, b, ev_cols], test_data)
@@ -587,6 +629,7 @@ def fit(spec: ModelSpec,
     done = [False] * n_real
     t_state = {"prev_fetch": time.perf_counter()}
 
+    @spanned("engine.fetch")
     def _process(rec):
         """Fetch one chunk's metrics (the only wait for the device; under a
         mesh, every trial block's) and run the host bookkeeping: history,

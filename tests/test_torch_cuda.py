@@ -1,8 +1,9 @@
 """Tests of the port that need the CUDA card: the fused embrace kernels
 against their plain version, the fused op's gradient on the card against
 the CPU, serving on the card against serving on the CPU, a fit on the
-card and a study's search, a 1 x 1 NCCL mesh, the kernels' row_base, and
-the checkpoint's second backend saving tensors on the card.
+card and a study's search, a 1 x 1 NCCL mesh, the kernels' row_base,
+the checkpoint's second backend saving tensors on the card, and the
+program's spans on the device trace's clock.
 They skip without a card.  This file imports neither JAX nor the
 JAX package, so the machine with the card runs it on its own:
 
@@ -26,6 +27,12 @@ from embracenet_tpu_torch.models.reload import ReloadedModel
 from embracenet_tpu_torch.ops import embrace as K
 from embracenet_tpu_torch.training import engine
 from embracenet_tpu_torch.training.modelspec import get_spec
+from embracenet_tpu_torch.utils import profiling
+
+
+def _launches(name="embrace.launches"):
+    """Launches of a fused kernel so far (``utils.profiling`` counter)."""
+    return profiling.counters().get(name, 0)
 
 
 @pytest.fixture
@@ -60,10 +67,10 @@ def test_kernel_matches_plain_version(cuda, dtype):
     d0, _ = K.fused_embrace_reference(*args, ones, e_mask, u)
     d1, _ = K.fused_embrace_reference(*args, zeros, e_mask, u)
     p0 = torch.linspace(0, 1, b, device=cuda)
-    before = K.LAUNCHES
+    before = _launches()
     out, choose = K.fused_embrace(*args, p0, e_mask, 7)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == before + 1
+    assert _launches() == before + 1
     assert choose.dtype == torch.uint8
     torch.testing.assert_close(out, torch.where(choose.bool(), d0, d1),
                                rtol=tol, atol=tol)
@@ -96,10 +103,10 @@ def test_tiled_kernel_at_edge_and_path_shapes(cuda, b, d0, d1, e, dtype):
     d1_ref, _ = K.fused_embrace_reference(*args, zeros, e_mask, u)
     p0 = (torch.linspace(0, 1, b, device=cuda) if b > 1
           else torch.full((1,), 0.5, device=cuda))
-    before = K.LAUNCHES
+    before = _launches()
     out, choose = K.fused_embrace(*args, p0, e_mask, 7)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == before + 1
+    assert _launches() == before + 1
     torch.testing.assert_close(out, torch.where(choose.bool(), d0_ref, d1_ref),
                                rtol=tol, atol=tol)
     assert bool((out[:, e - 64:] == 0).all())
@@ -134,10 +141,10 @@ def test_serving_on_the_card_matches_the_cpu(cuda):
             "cnn": rng.integers(0, 4, size=(300, 256), dtype=np.uint8)}
     want = ReloadedModel("EmbraceNetMultimodal", params, bn, flat,
                          in_features_ffnn=16, device="cpu")(data, logits=True)
-    before = K.LAUNCHES
+    before = _launches()
     got = ReloadedModel("EmbraceNetMultimodal", params, bn, flat,
                         in_features_ffnn=16)(data, logits=True)
-    assert K.LAUNCHES == before + 1
+    assert _launches() == before + 1
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
@@ -168,11 +175,11 @@ def test_fulle_chooses_as_fused_for_the_same_seed(cuda, b, d0, d1, e, dtype):
     x0, x1, w0, b0, w1, b1, e_mask = _inputs(cuda, dtype, b, d0, d1, e, e - 64)
     p0 = (torch.linspace(0, 1, b, device=cuda) if b > 1
           else torch.full((1,), 0.5, device=cuda))
-    before = K.LAUNCHES_FULLE
+    before = _launches("embrace.launches_fulle")
     out_f, ch_f = K.fused_embrace_fulle(x0, x1, w0, b0, w1, b1, p0, e_mask, 21)
     out_t, ch_t = K.fused_embrace(x0, x1, w0, b0, w1, b1, p0, e_mask, 21)
     torch.cuda.synchronize()
-    assert K.LAUNCHES_FULLE == before + 1
+    assert _launches("embrace.launches_fulle") == before + 1
     assert torch.equal(ch_f, ch_t)
     assert bool((out_f[:, e - 64:] == 0).all())
     index = torch.cuda.current_device()
@@ -205,11 +212,11 @@ def _fit_inputs():
 
 
 def test_fit_runs_on_the_card_through_the_kernel(cuda):
-    before = K.LAUNCHES
+    before = _launches()
     res = engine.fit(*_fit_inputs(),
                      TrainConfig(num_epochs=2, epoch_chunk=2, batch_size=100))
     # 4 train batches (n_batches + 1) and 1 eval batch per epoch
-    assert K.LAUNCHES - before == 2 * (4 + 1)
+    assert _launches() - before == 2 * (4 + 1)
     assert res.epochs_run == [2]
     assert all(np.isfinite(res.loss_train[0] + res.auprc_test[0]))
     assert res.params["dock1_w"].device.type == "cuda"
@@ -297,7 +304,7 @@ def test_run_search_trains_its_trials_on_the_card(cuda, tmp_path):
             "selection_probabilities_FFNN": 0.5,
             "optimizer": "Adam", "lr": 1e-3, "weight_decay": 1e-4}
     draws = [draw, dict(draw, lr=2e-3), dict(draw, optimizer="RMSprop")]
-    before = K.LAUNCHES
+    before = _launches()
     res = run_search(spec, "EmbraceNetMultimodal", train, test, "s",
                      storage=str(tmp_path / "s.db"),
                      sampler=ReplaySampler(draws), n_trials=3,
@@ -305,7 +312,7 @@ def test_run_search_trains_its_trials_on_the_card(cuda, tmp_path):
                                            batch_size=100),
                      checkpoint_dir=str(tmp_path))
     # the 3 trials train as one population: one launch a forward pass
-    assert K.LAUNCHES - before == 2 * (4 + 1)
+    assert _launches() - before == 2 * (4 + 1)
     study = Study("s", str(tmp_path / "s.db"))
     rows = study.trials
     study.close()
@@ -411,14 +418,14 @@ def test_train_from_a_pipeline_launches_the_kernel_on_the_card(cuda, tmp_path):
     write_raw_dataset(root, 300, {"HEPG2": 40, "K562": 8})
     task = "active_P_vs_inactive_P"
     pipe = et.preprocess(task, root=root, cache_dir=str(tmp_path / "cache"))
-    before = K.LAUNCHES
+    before = _launches()
     scores = et.train("EmbraceNetMultimodal", "HEPG2", task, pipeline=pipe,
                       cv_cfg=CVConfig(n_folds=2, n_trials=2),
                       train_cfg=TrainConfig(num_epochs=1, epoch_chunk=1,
                                             batch_size=50),
                       storage=str(tmp_path / "s.db"),
                       checkpoint_dir=str(tmp_path / "models"))
-    assert K.LAUNCHES > before
+    assert _launches() > before
     assert all(np.isfinite(scores["final_test_AUPRC_scores"]))
 
 
@@ -450,11 +457,8 @@ def test_compare_models_result_predicts_on_the_card_as_on_the_cpu(cuda,
     assert 0.0 <= p <= 1.0
 
 
-def test_device_trace_names_the_kernel_after_a_predict(cuda, tmp_path):
-    import glob
-
-    from embracenet_tpu_torch.utils import profiling
-
+def _small_served(rows):
+    """A small EmbraceNet served on the card, and ``rows`` windows for it."""
     flat = {"FFNN_n_layers": 1, "FFNN_n_units_l0": 64, "CNN_n_layers": 1,
             "CNN_out_channels_l0": 32, "CNN_kernel_size_l0": 11,
             "EMBRACENET_embracement_size": 512, "n_post_layers": 0,
@@ -464,13 +468,20 @@ def test_device_trace_names_the_kernel_after_a_predict(cuda, tmp_path):
     model = ReloadedModel("EmbraceNetMultimodal", params, bn, flat,
                           in_features_ffnn=16)
     rng = np.random.default_rng(0)
-    data = {"ffnn": rng.normal(size=(300, 16)).astype(np.float32),
-            "cnn": rng.integers(0, 4, size=(300, 256), dtype=np.uint8)}
-    before = K.LAUNCHES
+    data = {"ffnn": rng.normal(size=(rows, 16)).astype(np.float32),
+            "cnn": rng.integers(0, 4, size=(rows, 256), dtype=np.uint8)}
+    return model, data
+
+
+def test_device_trace_names_the_kernel_after_a_predict(cuda, tmp_path):
+    import glob
+
+    model, data = _small_served(300)
+    before = _launches()
     with profiling.device_trace(str(tmp_path / "trace")):
         with profiling.annotate("predict"):
             model(data)
-    assert K.LAUNCHES == before + 1
+    assert _launches() == before + 1
     (path,) = glob.glob(str(tmp_path / "trace" / "*.pt.trace.json"))
     with open(path) as fh:
         trace = fh.read()
@@ -492,12 +503,11 @@ def test_trial_axis_launch_equals_single_launches(cuda, kernel, dtype):
     p0 = torch.rand(3, x0.shape[1], device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(1))
     seeds = torch.tensor([3, 4, 5], device=cuda)
-    before = getattr(K, "LAUNCHES" if kernel == "fused_embrace" else
-                     "LAUNCHES_FULLE")
+    name = ("embrace.launches" if kernel == "fused_embrace" else
+            "embrace.launches_fulle")
+    before = _launches(name)
     out, ch = fn(*args, p0, e_mask, seeds)
-    after = getattr(K, "LAUNCHES" if kernel == "fused_embrace" else
-                    "LAUNCHES_FULLE")
-    assert after == before + 1
+    assert _launches(name) == before + 1
     for t in range(3):
         o, c = fn(*(a[t] for a in args), p0[t], e_mask[t], seeds[t])
         assert torch.equal(c, ch[t]) and torch.equal(o, out[t])
@@ -592,3 +602,35 @@ def test_checkpoint_second_backend_saves_card_tensors(cuda, tmp_path):
                  (got["params"]["step"], tree["params"]["step"])):
         assert isinstance(g, np.ndarray) and g.shape == tuple(w.shape)
         assert torch.equal(torch.from_numpy(g), w.cpu())
+
+
+def test_fused_launches_fall_inside_their_microbatch_spans(cuda):
+    """The program's spans share the device trace's clock: in a traced
+    10,000-window request each fused kernel's runtime launch call lies
+    inside one ``reload.microbatch`` span (one a micro-batch), and the
+    kernel starts after that span begins."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model, data = _small_served(10_000)
+    model(data)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model(data)
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    host = [e for e in events if e.device_type() == DeviceType.CPU]
+    spans = [(e.start_ns(), e.end_ns()) for e in host
+             if e.name() == "reload.microbatch"]
+    kernels = [e for e in events if e.device_type() == DeviceType.CUDA
+               and "embrace_fused_fwd" in e.name()]
+    assert len(spans) == 3 and len(kernels) == 3
+    for k in kernels:
+        # CUPTI gives the launch call and its kernel one correlation id
+        (launch,) = [e for e in host if "Launch" in e.name()
+                     and e.correlation_id() == k.correlation_id()]
+        inside = [s for s in spans
+                  if s[0] <= launch.start_ns() <= launch.end_ns() <= s[1]]
+        assert len(inside) == 1, (launch.name(), launch.start_ns(), spans)
+        assert k.start_ns() >= inside[0][0]

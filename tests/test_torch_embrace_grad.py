@@ -21,6 +21,7 @@ from torch_parity import close, t
 from embracenet_tpu.ops.pallas.embrace import _fused_fwd_fulle
 from embracenet_tpu.ops.pallas.embrace import fused_embrace as j_fused
 from embracenet_tpu_torch.ops import embrace as K
+from embracenet_tpu_torch.utils.profiling import counters
 
 TOL = 2e-4
 
@@ -124,10 +125,10 @@ def test_fulle_plain_version_matches_pallas_interpret(inputs, p0_value):
 def test_fulle_chooses_as_fused_and_counts_no_cpu_launch(inputs):
     args, e_mask, _ = inputs
     p0 = torch.linspace(0, 1, len(args[0]))
-    before = K.LAUNCHES_FULLE
+    before = counters().get("embrace.launches_fulle", 0)
     out_f, ch_f = K.fused_embrace_fulle(*map(t, args), p0, t(e_mask), 11)
     out_t, ch_t = K.fused_embrace(*map(t, args), p0, t(e_mask), 11)
-    assert K.LAUNCHES_FULLE == before
+    assert counters().get("embrace.launches_fulle", 0) == before
     assert torch.equal(ch_f, ch_t) and torch.equal(out_f, out_t)
 
 

@@ -43,6 +43,7 @@ MODULES_LEFT_OUT = {
 NAMES_LEFT_OUT = {
     ("training/engine.py", "key_streams"): SEEDS,
     ("training/modelspec.py", "ModelSpec.init_traced"): SEEDS,
+    ("utils/profiling.py", "StepTimer"): "Profiling hooks",
 }
 #: parameters the port leaves out wherever JAX takes them
 PARAMS_LEFT_OUT_EVERYWHERE = {"key": SEEDS, "init_keys": SEEDS,

@@ -1,44 +1,17 @@
-"""The port's ``utils.profiling`` and ``utils.logging`` against the JAX
-package's: ``StepTimer`` summaries of the same structure, a
+"""The port's ``utils.profiling`` and ``utils.logging``: a
 ``torch.profiler`` trace that names an ``annotate`` span (a Chrome trace
 JSON where the JAX package writes xprof: a stated divergence), and
-``get_logger``'s name, level variable and single handler."""
+``get_logger``'s name, level variable and single handler.  The spans and
+counters themselves are ``test_torch_tracing.py``'s."""
 
 import glob
 import json
 import logging
-import time
 
 import torch
 
-from embracenet_tpu.utils import profiling as jprof
 from embracenet_tpu_torch.utils import logging as tlog
 from embracenet_tpu_torch.utils import profiling as tprof
-
-
-def _timed(mod):
-    timer = mod.StepTimer()
-    for _ in range(3):
-        with timer.phase("step"):
-            time.sleep(0.001)
-    with timer.phase("eval"):
-        pass
-    return timer
-
-
-def test_step_timer_summary_has_the_jax_structure(tmp_path):
-    timer = _timed(tprof)
-    got, want = timer.summary(), _timed(jprof).summary()
-    assert list(got) == list(want) == ["step", "eval"]
-    for name in got:
-        assert list(got[name]) == list(want[name])
-        assert got[name]["count"] == want[name]["count"]
-        for k, v in got[name].items():
-            assert type(v) is type(want[name][k]), (name, k)
-    assert got["step"]["total_s"] >= 0.003 and got["step"]["count"] == 3
-    assert got["step"]["mean_ms"] == round(timer.totals["step"] / 3 * 1e3, 3)
-    timer.dump(str(tmp_path / "t.json"))
-    assert json.loads((tmp_path / "t.json").read_text()) == timer.summary()
 
 
 def test_device_trace_writes_a_trace_that_names_the_span(tmp_path):

@@ -50,6 +50,7 @@ from embracenet_tpu_torch.benchkit import (IN_FEATURES, bound,  # noqa: E402
 from embracenet_tpu_torch.models.embracenet import embrace  # noqa: E402
 from embracenet_tpu_torch.models.layers import linear  # noqa: E402
 from embracenet_tpu_torch.ops import embrace as K  # noqa: E402
+from embracenet_tpu_torch.utils.profiling import counters  # noqa: E402
 
 BLOCK_SIZES = (100, 256, 1280, 4096)
 
@@ -147,13 +148,14 @@ def engine_bench(fused: bool, n=4000, epochs=10, batch=1024):
                       compute_dtype="bfloat16", patience=10_000,
                       fused_embrace=fused)
     engine.fit(spec, [hp], [opt], train, test, cfg)
-    launches0 = K.LAUNCHES
+    launches0 = counters().get("embrace.launches", 0)
     t0 = time.perf_counter()
     res = engine.fit(spec, [hp], [opt], train, test, cfg)
     dt = time.perf_counter() - t0
     ep = len(res.auprc_test[0])
     return {"fused": fused, "seconds": dt, "epochs": ep,
-            "windows_per_s": n * ep / dt, "kernel_launches": K.LAUNCHES - launches0,
+            "windows_per_s": n * ep / dt,
+            "kernel_launches": counters().get("embrace.launches", 0) - launches0,
             "best_test_auprc": max(res.auprc_test[0])}
 
 
@@ -204,11 +206,11 @@ def train_profile(fused: bool, compute_dtype=None, n_train=1000, batch=100,
         torch.cuda.synchronize()
 
     run()
-    launches0 = K.LAUNCHES
+    launches0 = counters().get("embrace.launches", 0)
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
-    launches = K.LAUNCHES - launches0
+    launches = counters().get("embrace.launches", 0) - launches0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
     dev_ms = device_times(prof)

@@ -44,11 +44,11 @@ def population(root: str) -> dict:
     from embracenet_tpu_torch.benchkit import IN_FEATURES, make_data
     from embracenet_tpu_torch.config import TrainConfig
     from embracenet_tpu_torch.hpo import space
-    from embracenet_tpu_torch.ops import embrace as K
     from embracenet_tpu_torch.training import engine
     from embracenet_tpu_torch.training.batching import balanced_plan
     from embracenet_tpu_torch.training.bucketing import plan_buckets
     from embracenet_tpu_torch.training.modelspec import get_spec
+    from embracenet_tpu_torch.utils.profiling import counters
 
     data = make_data(4000, IN_FEATURES, np.random.default_rng(0))
     train = {k: v[:3000] for k, v in data.items()}
@@ -71,11 +71,11 @@ def population(root: str) -> dict:
         torch.cuda.synchronize()
 
     run()
-    launches0 = K.LAUNCHES
+    launches0 = counters().get("embrace.launches", 0)
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
-    launches = K.LAUNCHES - launches0
+    launches = counters().get("embrace.launches", 0) - launches0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
     kernels, busy_us = 0, 0.0
@@ -97,7 +97,7 @@ def cv(root: str) -> dict:
     import embracenet_tpu_torch as et
     from embracenet_tpu_torch.benchkit import IN_FEATURES, make_data
     from embracenet_tpu_torch.config import CVConfig, TrainConfig
-    from embracenet_tpu_torch.ops import embrace as K
+    from embracenet_tpu_torch.utils.profiling import counters, reset_counters
 
     data = make_data(4000, IN_FEATURES, np.random.default_rng(0), prevalence=0.05)
     out = {}
@@ -106,7 +106,7 @@ def cv(root: str) -> dict:
     for rep in (0, 1):
         for name, fuse in (("sequential", False), ("fused", True)):
             with tempfile.TemporaryDirectory(dir=build) as d:
-                K.LAUNCHES = 0
+                reset_counters()
                 t0 = time.perf_counter()
                 et.train("EmbraceNetMultimodal", "HEPG2", "active_E_vs_inactive_E",
                          data=data,
@@ -117,7 +117,7 @@ def cv(root: str) -> dict:
                          storage=os.path.join(d, "s.db"),
                          checkpoint_dir=os.path.join(d, "models"))
                 out[name] = {"wall_s": time.perf_counter() - t0,
-                             "launches": K.LAUNCHES}
+                             "launches": counters().get("embrace.launches", 0)}
     return out
 
 
