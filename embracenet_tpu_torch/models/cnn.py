@@ -14,8 +14,9 @@ Input: one-hot DNA ``[B, 4, 256]``.  Hyperparameters per trial:
 ``n_layers``, ``channels`` [4], ``kernels`` [4], ``dropout`` [4].  A
 population runs as one program (:func:`features_trials`,
 :func:`apply_trials`): its activations are ``[B, T, C, L]`` (NCW with the
-trials' channels side by side), every block one grouped convolution, its
-BatchNorm per trial; :func:`features` and :func:`apply` are one trial.
+trials' channels side by side), every block one convolution of all trials
+(:func:`layers.conv1d_trials`), its BatchNorm per trial; :func:`features`
+and :func:`apply` are one trial.
 """
 
 from __future__ import annotations
@@ -123,8 +124,9 @@ def features_trials(params, bn_state, trials: Trials, x, *,
     ``FB = flat_bucket(max_depth, max_channels)``.
 
     ``x [B, T*4, 256]`` (:func:`trial_channels`); params and BN state
-    leaves ``[T, ...]``, ``row_mask [T, B]``.  Every block is one grouped
-    convolution over all trials, whose activations stay ``[B, T, C, L]``.
+    leaves ``[T, ...]``, ``row_mask [T, B]``.  Every block is one
+    convolution of all trials (``conv1d_trials``), whose activations stay
+    ``[B, T, C, L]``.
     ``max_depth`` computes only the first ``max_depth`` blocks (the
     caller passes the population's deepest trial); ``max_channels`` and
     ``max_kernels`` slice weights to the population's per-layer maxima

@@ -135,9 +135,10 @@ def apply_trials(params, bn_state, trials: Trials, x, *, train: bool = False,
     parameter shapes follow it) -> (logits [T, B, 2], new_bn_state);
     params and BN state leaves ``[T, ...]``, ``x [B, T*4, 256]``
     (``cnn.trial_channels``), ``row_mask [T, B]``.  The conv blocks run
-    as grouped convolutions over all trials and the FC layers as batched
-    products; the recurrence is one call of torch's LSTM per trial (a
-    stated divergence: cuDNN takes no trial axis).  ``shard``: this rank's
+    as one convolution of all trials each (``layers.conv1d_trials``) and
+    the FC layers as batched products; the recurrence is one call of
+    torch's LSTM per trial (a stated divergence: cuDNN takes no trial
+    axis).  ``shard``: this rank's
     rows of a data-sharded batch (``parallel.mesh.BatchShard``)."""
     hp, n_trials = trials.hp, len(trials)
     depth = trials.ints("n_layers")[0]

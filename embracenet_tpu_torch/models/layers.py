@@ -9,15 +9,17 @@ package: ``linear`` is ``x @ w`` with ``w[in, out]``, ``conv1d_ncw`` takes
 
 A population of T trials runs as one program, as ``jax.vmap`` runs it in
 the JAX package: the vmapped axis is written out.  ``linear`` takes
-``x[T, B, in] @ w[T, in, out]`` (a batched product), ``conv1d_trials`` one
-grouped convolution over ``x[B, T*C, L]`` (``groups=T``: the CNN keeps its
-activations as ``[B, T, C, L]``), ``batchnorm_trials`` per-trial moments
-under a ``[T, B]`` row mask, ``width_mask`` / ``kernel_tap_mask`` take
-``[T]`` tensors, and :class:`Draws` gives each trial its own random draws.
+``x[T, B, in] @ w[T, in, out]`` (a batched product), ``conv1d_trials``
+every trial's convolution over ``x[B, T*C, L]`` (the CNN keeps its
+activations as ``[B, T, C, L]``; float32 as batched products over im2col
+windows, else one grouped convolution), ``batchnorm_trials`` per-trial
+moments under a ``[T, B]`` row mask, ``width_mask`` / ``kernel_tap_mask``
+take ``[T]`` tensors, and :class:`Draws` gives each trial its own random draws.
 
 Precision contract (as ``layers.py:65-98`` of the JAX package):
 
-  * ``compute_dtype=None``: true float32.  Matrix products run at
+  * ``compute_dtype=None``: true float32.  Matrix products (a
+    population's convolutions among them) run at
     ``float32_matmul_precision("highest")`` and cuDNN convolutions with TF32
     off (cuDNN's default would round inputs to TF32's 10-bit mantissa).
   * ``compute_dtype=bfloat16``: ``linear`` rounds its operands to bf16 and
@@ -85,9 +87,10 @@ _POPULATION_INVARIANT = False
 @contextlib.contextmanager
 def population_invariant():
     """Inside, a population of one trial takes its batched products as a
-    population of two does (:func:`trial_matmul`; and on the CPU its
-    convolutions, :func:`conv1d_trials`), so a trial's sums do not depend
-    on how many trials share its program.  A product of one batch runs as
+    population of two does (:func:`trial_matmul`, which its float32
+    convolutions take too; and on the CPU its grouped convolutions,
+    :func:`conv1d_trials`), so a trial's sums do not depend on how many
+    trials share its program.  A product of one batch runs as
     one GEMM that may split its K (multithreaded on the CPU, a split-K
     kernel of cuBLAS on the card), a product of several batches as a
     batched GEMM that sums every batch alike for any count from 2 up; on
@@ -336,21 +339,105 @@ def conv1d_ncw(x: torch.Tensor, w: torch.Tensor, compute_dtype=None) -> torch.Te
     return conv1d_trials(x, w[None], compute_dtype)
 
 
+def _windows(x: torch.Tensor, t: int, k: int) -> torch.Tensor:
+    """im2col of a population: ``x[B, T*C, L]`` -> ``[T, C*K, B*L]``, row
+    ``c*K + j`` of trial t holding tap j of channel c at every (row,
+    position), zero-padded by ``(K-1)//2`` on each side (``w``'s ``(c,
+    k)`` order, so ``w[T, O, C*K] @`` it is the convolution).  One pad and
+    one gathering copy."""
+    b, _, length = x.shape
+    pad = (k - 1) // 2
+    x = F.pad(x, (pad, pad)).view(b, t, -1, length + 2 * pad)
+    return x.unfold(3, k, 1).permute(1, 2, 4, 0, 3).flatten(1, 2).flatten(2)
+
+
+class _TrialConvGemm(torch.autograd.Function):
+    """The float32 convolution of a population as three batched GEMMs a
+    trial over im2col windows (:func:`_windows`), all through
+    :func:`trial_matmul` at "highest" precision:
+
+    * forward ``y[T, O, B*L] = w[T, O, C*K] @ cols[T, C*K, B*L]``;
+    * weight gradient ``dw[T, O, C*K] = dy[T, O, B*L] @ cols^T``, from the
+      windows the forward saved (gathering them again was slower on the
+      card at every block, PERF.md);
+    * input gradient, only where ``x`` needs one: ``dcols[T, C*K, B*L] =
+      w^T @ dy`` folded back onto the positions (``F.fold``: each input
+      sums its K taps in one fixed order; on the card it took fewer
+      launches and less time over the CNN's blocks than the convolution
+      of ``dy``'s windows with the flipped weight, PERF.md).
+
+    Every product is a batched GEMM whose per-trial sums cuBLAS takes
+    alike for any trial count from 2 up, and a lone trial inside
+    :func:`population_invariant` runs as one of two, forward and backward
+    alike, so a trial's sums do not depend on its population."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        t, o, c, k = w.shape
+        b = x.shape[0]
+        cols = _windows(x, t, k)
+        with _highest_matmul_precision():
+            y = trial_matmul(w.reshape(t, o, c * k), cols)
+        ctx.invariant, ctx.length = _POPULATION_INVARIANT, x.shape[-1]
+        ctx.save_for_backward(cols, w)
+        return y.view(t, o, b, -1).permute(2, 0, 1, 3).reshape(b, t * o, -1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        cols, w = ctx.saved_tensors
+        t, o, c, k = w.shape
+        b = dy.shape[0]
+        dy = dy.reshape(b, t, o, -1).permute(1, 2, 0, 3).reshape(t, o, -1)
+        dx = dw = None
+        with _highest_matmul_precision(), (population_invariant()
+                                           if ctx.invariant else
+                                           contextlib.nullcontext()):
+            if ctx.needs_input_grad[1]:
+                dw = trial_matmul(dy, cols.transpose(1, 2)).view(w.shape)
+            if ctx.needs_input_grad[0]:
+                dcols = trial_matmul(w.reshape(t, o, c * k).transpose(1, 2),
+                                     dy)
+                dx = F.fold(dcols, (b, ctx.length), (1, k),
+                            padding=(0, (k - 1) // 2))       # [T, C, B, L]
+                dx = dx.permute(2, 0, 1, 3).reshape(b, t * c, -1)
+        return dx, dw
+
+
+#: the least window depth C*K a float32 population convolution takes as
+#: GEMMs: below it (the one-hot input's 4 channels x 15 taps is 60) the
+#: weight gradient is a thin C*K x O product summed over every position,
+#: which cuBLAS takes at a few % of peak, and cuDNN's own kernels were
+#: faster on the card in both directions (PERF.md)
+_GEMM_MIN_DEPTH = 128
+
+
 def conv1d_trials(x: torch.Tensor, w: torch.Tensor,
                   compute_dtype=None) -> torch.Tensor:
     """:func:`conv1d_ncw` of every trial at once: ``x[B, T*C, L]`` (trial
     t's channels at ``[t*C, (t+1)*C)``) and ``w[T, O, C, K]`` -> ``[B,
-    T*O, L]``, one grouped convolution (``groups=T``) under the same
-    precision contract."""
-    t, o = w.shape[0], w.shape[1]
+    T*O, L]`` under the same precision contract.
+
+    A float32 population (T > 1, or a lone trial inside
+    :func:`population_invariant`) whose windows are at least
+    ``_GEMM_MIN_DEPTH`` deep (``C*K``) runs as per-trial batched
+    GEMMs over im2col windows (:class:`_TrialConvGemm`, counted by
+    ``conv.gemm``): cuDNN's grouped convolution is slow there, its
+    deterministic float32 backward most of all.  Every other call (one
+    model's serving, every bf16 call, a thin first block) is one grouped
+    convolution (``F.conv1d``, ``groups=T``: cuDNN on the card)."""
+    t, o, c, k = w.shape
+    dt = as_dtype(compute_dtype)
+    if (dt is None and (t > 1 or _POPULATION_INVARIANT)
+            and c * k >= _GEMM_MIN_DEPTH):
+        count("conv.gemm")
+        return _TrialConvGemm.apply(x, w.to(x.dtype))
     if _POPULATION_INVARIANT and t == 1 and x.device.type == "cpu":
         # a lone trial as one of two groups: the CPU's weight gradient of
         # one group sums in another order than that of several
         return conv1d_trials(x.repeat(1, 2, 1), w.expand(2, *w.shape[1:]),
                              compute_dtype)[:, :o]
-    w = w.reshape((t * o,) + tuple(w.shape[2:]))
-    pad = (w.shape[-1] - 1) // 2
-    dt = as_dtype(compute_dtype)
+    w = w.reshape(t * o, c, k)
+    pad = (k - 1) // 2
     if dt is not None:
         return F.conv1d(x.to(dt), w.to(dt), padding=pad, groups=t).float()
     with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,

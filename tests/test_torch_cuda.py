@@ -2,8 +2,10 @@
 against their plain version, the fused op's gradient on the card against
 the CPU, serving on the card against serving on the CPU, a fit on the
 card and a study's search, a 1 x 1 NCCL mesh, the kernels' row_base,
-the checkpoint's second backend saving tensors on the card, and the
-program's spans on the device trace's clock.
+the checkpoint's second backend saving tensors on the card, the
+program's spans on the device trace's clock, and the float32 population
+convolution's GEMM path (a trial's sums alike in any population, against
+cuDNN's grouped convolution).
 They skip without a card.  This file imports neither JAX nor the
 JAX package, so the machine with the card runs it on its own:
 
@@ -634,3 +636,93 @@ def test_fused_launches_fall_inside_their_microbatch_spans(cuda):
                   if s[0] <= launch.start_ns() <= launch.end_ns() <= s[1]]
         assert len(inside) == 1, (launch.name(), launch.start_ns(), spans)
         assert k.start_ns() >= inside[0][0]
+
+
+# the CNN's supernet blocks (C, O, L) at 15 taps: the float32 population's
+# convolutions, which run as per-trial GEMMs over im2col windows but for
+# the first block's (4 x 15-deep windows: cuDNN)
+CONV_BLOCKS = [(4, 64, 256), (64, 96, 124), (96, 256, 58), (256, 512, 25)]
+
+
+def _conv_trial0(x, w, g, t):
+    """Trial 0's forward and both gradients of ``layers.conv1d_trials``
+    over the first ``t`` trials (a lone trial inside
+    ``population_invariant``, as ``engine.fit`` runs it)."""
+    from embracenet_tpu_torch.models import layers
+
+    c, o = w.shape[2], w.shape[1]
+    xs = x[:, :t * c].clone().requires_grad_(True)
+    ws = w[:t].clone().requires_grad_(True)
+    with layers.exact_float32(), layers.population_invariant():
+        y = layers.conv1d_trials(xs, ws)
+        gx, gw = torch.autograd.grad(y, (xs, ws), g[:, :t * o])
+    return y[:, :o], gx[:, :c], gw[0]
+
+
+def _conv_inputs(dev, c, o, length, t=9, b=100):
+    gen = torch.Generator(device=dev).manual_seed(c * 1000 + o)
+    x = torch.randn(b, t * c, length, generator=gen, device=dev)
+    w = torch.randn(t, o, c, 15, generator=gen, device=dev) * (c * 15) ** -0.5
+    g = torch.randn(b, t * o, length, generator=gen, device=dev)
+    return x, w, g
+
+
+@pytest.mark.parametrize("c,o,length", CONV_BLOCKS)
+def test_conv_gemm_sums_a_trial_alike_in_any_population(cuda, c, o, length):
+    """At each supernet block, trial 0's forward and both gradients are
+    the same bits in populations of 1, 2, 8 and 9 trials, and a second run
+    gives the same bits again (the last population of 2)."""
+    x, w, g = _conv_inputs(cuda, c, o, length)
+    two = _conv_trial0(x, w, g, 2)
+    for t in (1, 8, 9, 2):
+        got = _conv_trial0(x, w, g, t)
+        for name, a, b in zip(("y", "dx", "dw"), got, two):
+            assert torch.equal(a, b), (t, name)
+
+
+@pytest.mark.parametrize("c,o,length", CONV_BLOCKS)
+def test_conv_gemm_matches_cudnn_grouped_convolution(cuda, c, o, length):
+    """At each supernet block, 8 trials' forward and both gradients within
+    1e-5 of the largest value of cuDNN's grouped convolution under
+    ``exact_float32`` (float32 sums in another order); ``conv.gemm``
+    counts the GEMM path at blocks 2-4 and not at block 1."""
+    import torch.nn.functional as F
+
+    from embracenet_tpu_torch.models import layers
+
+    t = 8
+    x, w, g = _conv_inputs(cuda, c, o, length, t)
+    before = profiling.counters().get("conv.gemm", 0)
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    with layers.exact_float32():
+        y = layers.conv1d_trials(xs, ws)
+        got = (y,) + torch.autograd.grad(y, (xs, ws), g)
+        y = F.conv1d(xs, ws.reshape(t * o, c, 15), padding=7, groups=t)
+        want = (y,) + torch.autograd.grad(y, (xs, ws), g)
+    gemm = c * 15 >= layers._GEMM_MIN_DEPTH
+    assert gemm == (c > 4)
+    assert profiling.counters().get("conv.gemm", 0) == before + gemm
+    for name, a, b in zip(("y", "dx", "dw"), got, want):
+        torch.testing.assert_close(a.detach(), b.detach(), rtol=1e-5,
+                                   atol=1e-5 * float(b.detach().abs().max()),
+                                   msg=lambda m, n=name: f"{n}: {m}")
+
+
+def test_fit_on_the_card_runs_its_convolutions_as_gemms(cuda):
+    """A float32 fit of one trial on the card, two CNN blocks: the second
+    (32 x 5-deep windows) takes the GEMM path inside
+    ``population_invariant``, one ``conv.gemm`` a forward, and the first
+    (4 x 11) stays on cuDNN."""
+    spec, hps, opts, train, test = _fit_inputs()
+    flat = {"FFNN_n_layers": 1, "FFNN_n_units_l0": 32, "CNN_n_layers": 2,
+            "CNN_out_channels_l0": 32, "CNN_kernel_size_l0": 11,
+            "CNN_out_channels_l1": 64, "CNN_kernel_size_l1": 5,
+            "EMBRACENET_embracement_size": 512, "n_post_layers": 0,
+            "selection_probabilities_FFNN": 0.5, "optimizer": "Adam",
+            "lr": 1e-3, "weight_decay": 1e-4}
+    hps = [space.params_to_hp("EmbraceNetMultimodal", flat)]
+    before = profiling.counters().get("conv.gemm", 0)
+    engine.fit(spec, hps, [space.optimizer_hp(flat)], train, test,
+               TrainConfig(num_epochs=2, epoch_chunk=2, batch_size=100))
+    # 4 train batches and 1 eval batch an epoch
+    assert profiling.counters()["conv.gemm"] - before == 2 * (4 + 1)

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from torch_parity import close, t
 
 from embracenet_tpu import config as jconfig
@@ -21,6 +22,7 @@ from embracenet_tpu_torch.data import codec as tcodec
 from embracenet_tpu_torch.hpo import space as tspace
 from embracenet_tpu_torch.models import layers as tl
 from embracenet_tpu_torch.ops import convmath as tconv
+from embracenet_tpu_torch.utils.profiling import counters
 
 TOL = 1e-5
 
@@ -51,6 +53,107 @@ def test_conv1d_ncw_bf16_runs_in_bf16(rng):
     got = tl.conv1d_ncw(t(x), t(w), "bfloat16")
     assert got.dtype == torch.float32
     close(got, jl.conv1d_ncw(x, w, jnp.bfloat16), 3e-2)
+
+
+def _conv_gemm_inputs(rng, n_trials, k, c=32, o=8, length=40):
+    # weights at the scale of the layer's init (fan-in C*K), outputs ~1
+    x = rng.normal(size=(3, n_trials * c, length)).astype(np.float32)
+    w = (rng.normal(size=(n_trials, o, c, k)) / np.sqrt(c * k)).astype(
+        np.float32)
+    g = rng.normal(size=(3, n_trials * o, length)).astype(np.float32)
+    return x, w, g
+
+
+def _conv_gemm(x, w, g):
+    """conv1d_trials inside population_invariant (so a lone trial too takes
+    the GEMM path) -> (y, dx, dw)."""
+    xs, ws = t(x).requires_grad_(True), t(w).requires_grad_(True)
+    with tl.population_invariant():
+        y = tl.conv1d_trials(xs, ws)
+        return (y,) + torch.autograd.grad(y, (xs, ws), t(g))
+
+
+@pytest.mark.parametrize("n_trials", [1, 3])
+@pytest.mark.parametrize("k", [5, 11, 15])
+def test_conv1d_trials_gemm_path_is_each_trials_jax_conv(rng, k, n_trials):
+    # a float32 population's convolutions (windows at least
+    # _GEMM_MIN_DEPTH = 128 deep: 32 channels x 5 taps and up) run as
+    # per-trial GEMMs over im2col windows, counted by conv.gemm
+    c, o = 32, 8
+    x, w, g = _conv_gemm_inputs(rng, n_trials, k, c, o)
+    before = counters().get("conv.gemm", 0)
+    y, _, _ = _conv_gemm(x, w, g)
+    assert counters()["conv.gemm"] == before + 1
+    for i in range(n_trials):
+        close(y[:, i * o:(i + 1) * o],
+              jl.conv1d_ncw(x[:, i * c:(i + 1) * c], w[i]), TOL)
+
+
+@pytest.mark.parametrize("n_trials", [1, 3])
+@pytest.mark.parametrize("k", [5, 11, 15])
+def test_conv1d_trials_gemm_gradients_are_conv1d_autograds(rng, k, n_trials):
+    x, w, g = _conv_gemm_inputs(rng, n_trials, k)
+    _, dx, dw = _conv_gemm(x, w, g)
+    xs, ws = t(x).requires_grad_(True), t(w).requires_grad_(True)
+    y = F.conv1d(xs, ws.reshape(-1, *ws.shape[2:]), padding=(k - 1) // 2,
+                 groups=n_trials)
+    want_dx, want_dw = torch.autograd.grad(y, (xs, ws), t(g))
+    close(dx, want_dx, TOL)
+    close(dw, want_dw, TOL)
+
+
+@pytest.mark.parametrize("k", [5, 15])
+def test_conv1d_trials_lone_trial_sums_as_in_a_population(rng, k):
+    # inside population_invariant a lone trial's products run as one of
+    # two: its forward and both gradients are trial 0's of 3, bit for bit
+    x, w, g = _conv_gemm_inputs(rng, 3, k)
+    one = _conv_gemm(x[:, :32], w[:1], g[:, :8])
+    three = _conv_gemm(x, w, g)
+    for a, b, n in zip(one, three, (8, 32, 1)):
+        np.testing.assert_array_equal(a.detach().numpy(),
+                                      b[:n].detach().numpy() if b.dim() == 4
+                                      else b[:, :n].detach().numpy())
+
+
+def test_conv_gemm_counts_population_fits_not_serving_or_bf16(rng):
+    from embracenet_tpu_torch.config import TrainConfig
+    from embracenet_tpu_torch.models import embracenet
+    from embracenet_tpu_torch.models.reload import ReloadedModel
+    from embracenet_tpu_torch.training import engine
+    from embracenet_tpu_torch.training.modelspec import get_spec
+
+    d = 8
+    data = {"ffnn": rng.normal(size=(250, d)).astype(np.float32),
+            "cnn": rng.integers(0, 4, size=(250, 256), dtype=np.uint8),
+            "y": (rng.random(250) < 0.3).astype(np.int64)}
+    train = {k: v[:200] for k, v in data.items()}
+    test = {k: v[200:] for k, v in data.items()}
+    flats = [{"FFNN_n_layers": 1, "FFNN_n_units_l0": 32, "CNN_n_layers": n,
+              "CNN_out_channels_l0": 16, "CNN_kernel_size_l0": 5,
+              "CNN_out_channels_l1": 32, "CNN_kernel_size_l1": 11,
+              "EMBRACENET_embracement_size": 512, "n_post_layers": 0,
+              "selection_probabilities_FFNN": 0.5, "optimizer": "Adam",
+              "lr": 1e-3, "weight_decay": 1e-4} for n in (1, 2)]
+    spec = get_spec("EmbraceNetMultimodal", d)
+    hps = [tspace.params_to_hp("EmbraceNetMultimodal", f) for f in flats]
+    before = counters()
+    engine.fit(spec, hps, [tspace.optimizer_hp(f) for f in flats], train, test,
+               TrainConfig(num_epochs=2, batch_size=100), device="cpu")
+    after = counters()
+    steps = after["engine.train_steps"] - before.get("engine.train_steps", 0)
+    # the second block (16 channels x 11 taps) in every train step and in
+    # each epoch's one evaluation batch; the first (4 x 5) stays on cuDNN
+    assert after["conv.gemm"] - before.get("conv.gemm", 0) == steps + 2
+
+    # one model served, and a bf16 population: cuDNN, not counted
+    params, bn = embracenet.init(torch.Generator().manual_seed(0), hps[1], d)
+    model = ReloadedModel("EmbraceNetMultimodal", params, bn, flats[1],
+                          in_features_ffnn=d, device="cpu")
+    before = counters().get("conv.gemm", 0)
+    assert model(test).shape[0] == 50
+    x, w, _ = _conv_gemm_inputs(rng, 3, 5)
+    tl.conv1d_trials(t(x), t(w), "bfloat16")
+    assert counters().get("conv.gemm", 0) == before
 
 
 def test_maxpool1d(rng):

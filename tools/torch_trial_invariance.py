@@ -38,7 +38,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from embracenet_tpu_torch.benchkit import nvidia_smi  # noqa: E402
-from embracenet_tpu_torch.models.layers import exact_float32  # noqa: E402
+from embracenet_tpu_torch.models.layers import (conv1d_trials,  # noqa: E402
+                                                exact_float32,
+                                                population_invariant)
 
 COUNTS = (1, 2, 3, 8, 9)
 
@@ -69,15 +71,18 @@ def bmm(dev, b, k, n):
     return _same_as_two(trial0)
 
 
-def conv(dev, c=64, o=96, length=124, k=15):
+def conv(dev, c=64, o=96, length=124, k=15, library=False):
+    """cuDNN's grouped convolution, or with ``library`` the port's
+    ``conv1d_trials`` as ``engine.fit`` runs it."""
     x, w = _randn(dev, 4, 100, 9 * c, length), _randn(dev, 5, 9, o, c, k)
     g = _randn(dev, 6, 100, 9 * o, length)
 
     def trial0(t):
         xs = x[:, :t * c].clone().requires_grad_(True)
         ws = w[:t].clone().requires_grad_(True)
-        with exact_float32():
-            y = F.conv1d(xs, ws.reshape(t * o, c, k), padding=k // 2, groups=t)
+        with exact_float32(), population_invariant():
+            y = (conv1d_trials(xs, ws) if library else F.conv1d(
+                xs, ws.reshape(t * o, c, k), padding=k // 2, groups=t))
             gx, gw = torch.autograd.grad(y, (xs, ws), g[:, :t * o])
         return y[:, :o], gx[:, :c], gw[0]
 
@@ -97,6 +102,10 @@ def main(argv=None) -> int:
     line = {"bmm_100x7936x1024": bmm(dev, 100, 7936, 1024),
             "bmm_100x256x256": bmm(dev, 100, 256, 256),
             "conv_64_to_96": conv(dev),
+            **{f"conv1d_trials_{c}_to_{o}": conv(dev, c, o, length,
+                                                 library=True)
+               for c, o, length in ((4, 64, 256), (64, 96, 124),
+                                    (96, 256, 58), (256, 512, 25))},
             "bn_sum": _same_as_two(
                 lambda t: [moments[:, :t].sum(dim=(0, 3))[0]]),
             "row_sum": _same_as_two(lambda t: [losses[:t].sum(-1)[0]]),
