@@ -43,6 +43,7 @@ from embracenet_tpu_torch.models.layers import (
     torch_uniform_init,
 )
 from embracenet_tpu_torch.ops.convmath import CNN_LENGTHS
+from embracenet_tpu_torch.utils.profiling import annotate, count
 
 LSTM_HIDDEN_MENU = CNN_LSTM_HIDDEN_MENU
 
@@ -67,22 +68,35 @@ def _lstm_init(generator, input_size, hidden, n_layers):
 LSTM_CHUNK = 1 << 28
 
 
+def _chunk_rows(x: torch.Tensor, hidden: int, n_layers: int) -> int:
+    """Rows of ``x`` one call of torch's LSTM takes: a chunk of
+    :data:`LSTM_CHUNK` on the card, all of them on the CPU."""
+    if not x.is_cuda:
+        return len(x)
+    return max(1, LSTM_CHUNK // (x.shape[1] * 4 * hidden * n_layers))
+
+
 def lstm_apply(params, x: torch.Tensor, train: bool = False) -> torch.Tensor:
     """x: [B, T, D] -> outputs [B, T, H] of the stacked LSTM (batch first,
     zero initial state), as calls of torch's LSTM: cuDNN's on the card
     (with TF32 off), in chunks of rows that bound one call's workspace
     (:data:`LSTM_CHUNK`; rows are independent), and ATen's on the CPU, in
-    one call.  ``train`` keeps what the backward pass needs."""
+    one call.  ``train`` keeps what the backward pass needs.
+
+    Each call is one ``cnn_lstm.lstm`` span (its backward pass is the
+    library's own op, ``aten::_cudnn_rnn_backward`` on the card) and adds
+    its timesteps x layers to the ``cnn_lstm.lstm_steps`` counter once,
+    whatever its row chunks."""
     hidden = params[0]["w_hh"].shape[0]
     flat = []
     for lp in params:   # torch's layout: w_ih [4H, in], w_hh [4H, H]
         flat += [lp["w_ih"].to(x.dtype).t().contiguous(),
                  lp["w_hh"].to(x.dtype).t().contiguous(),
                  lp["b_ih"].to(x.dtype), lp["b_hh"].to(x.dtype)]
-    rows = (max(1, LSTM_CHUNK // (x.shape[1] * 4 * hidden * len(params)))
-            if x.is_cuda else len(x))
+    rows = _chunk_rows(x, hidden, len(params))
+    count("cnn_lstm.lstm_steps", x.shape[1] * len(params))
     outs = []
-    with exact_float32():
+    with annotate("cnn_lstm.lstm"), exact_float32():
         for chunk in x.split(rows):
             h0 = chunk.new_zeros((len(params), chunk.shape[0], hidden))
             outs.append(torch._VF.lstm(chunk, (h0, h0), flat, True,

@@ -3,9 +3,10 @@ against their plain version, the fused op's gradient on the card against
 the CPU, serving on the card against serving on the CPU, a fit on the
 card and a study's search, a 1 x 1 NCCL mesh, the kernels' row_base,
 the checkpoint's second backend saving tensors on the card, the
-program's spans on the device trace's clock, and the float32 population
+program's spans on the device trace's clock, the float32 population
 convolution's GEMM path (a trial's sums alike in any population, against
-cuDNN's grouped convolution).
+cuDNN's grouped convolution), and CNN_LSTM's recurrence against cuDNN's
+LSTM called directly.
 They skip without a card.  This file imports neither JAX nor the
 JAX package, so the machine with the card runs it on its own:
 
@@ -15,6 +16,7 @@ Tolerances: float32 rtol = atol = 1e-4 (the K-sum taken in another order);
 bf16 operands against the plain version on the same bf16 operands, 1e-2.
 """
 
+import contextlib
 import traceback
 import warnings
 
@@ -409,6 +411,46 @@ def test_cnn_lstm_serves_a_large_batch_in_row_chunks(cuda, monkeypatch):
     monkeypatch.setattr(cnn_lstm, "LSTM_CHUNK", 64 * 496 * 4 * 32 * 2)
     chunked, _ = cnn_lstm.apply(params, bn, hp, x)
     torch.testing.assert_close(chunked, whole, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_the_recurrence_on_the_card_is_the_library_calls_bit_for_bit(
+        cuda, monkeypatch, profiled):
+    """``lstm_apply`` in three row chunks, with and without a profiler
+    recording its span and the library's backward op, against cuDNN's
+    LSTM called directly on the same chunks: outputs and every gradient
+    bit for bit, and its steps counted once."""
+    from embracenet_tpu_torch.models import cnn_lstm
+    from embracenet_tpu_torch.models.layers import exact_float32
+
+    gen = torch.Generator().manual_seed(3)
+    params = [{k: v.to(cuda).requires_grad_(True) for k, v in layer.items()}
+              for layer in cnn_lstm._lstm_init(gen, 4, 64, 2)]
+    x = torch.randn(30, 464, 4, device=cuda, requires_grad=True)
+    monkeypatch.setattr(cnn_lstm, "LSTM_CHUNK", 10 * 464 * 4 * 64 * 2)
+    leaves = [x] + [v for layer in params for v in layer.values()]
+    profiling.reset_counters()
+    prof = torch.profiler.profile() if profiled else contextlib.nullcontext()
+    with prof, exact_float32():   # as engine.population_step takes it
+        out = cnn_lstm.lstm_apply(params, x, train=True)
+        got = torch.autograd.grad((out ** 2).sum(), leaves)
+        torch.cuda.synchronize()
+    assert profiling.counters()["cnn_lstm.lstm_steps"] == 464 * 2
+    if profiled:
+        names = {e.name for e in prof.events()}
+        assert {"cnn_lstm.lstm", "aten::_cudnn_rnn_backward"} <= names
+    flat = []
+    for layer in params:
+        flat += [layer["w_ih"].t().contiguous(), layer["w_hh"].t().contiguous(),
+                 layer["b_ih"], layer["b_hh"]]
+    with exact_float32():
+        parts = [torch._VF.lstm(c, (c.new_zeros(2, 10, 64),) * 2, flat, True,
+                                2, 0.0, True, False, True)[0]
+                 for c in x.split(10)]
+        direct = torch.cat(parts)
+        want = torch.autograd.grad((direct ** 2).sum(), leaves)
+    assert torch.equal(out, direct)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_train_from_a_pipeline_launches_the_kernel_on_the_card(cuda, tmp_path):
