@@ -6,7 +6,8 @@ Needs one CUDA card and ``nvcc``; exits non-zero, printing no result,
 without them.  It
 
 1. builds the fused embrace kernel (``embracenet_tpu_torch/csrc/embrace.cu``)
-   with nvcc for sm_90a and prints the build time and ptxas' report;
+   and the MT19937 init kernel (``csrc/mt19937.cu``) with nvcc for sm_90a
+   and prints each one's build time and its own ptxas report;
 2. kernel phase: holds the kernel against its plain PyTorch version at the
    serving path's shape (B=4096, D0=256, D1=7936, E=1024), at a ragged
    shape (B=100, D0=200, D1=5568, E=768 with e_mask live on 512), at the
@@ -74,6 +75,15 @@ without them.  It
    in float32, the fused Function's dx0, dx1, dw0, db0, dw1, db1 equal
    autograd through the unfused path at p0 = 1 and p0 = 0 within
    1e-4 x max|grad|; times forward + backward of both;
+5b. init-draws phase: ``tools/torch_init_draws_bench.py``'s cases for
+   the pop8 population (8 trials, one launch) and CNN_LSTM's longest
+   stream (trial 1, ~127.1 M words): the MT19937 kernel's leaves equal the
+   CPU generators' bit for bit; its device ms and words/s a stream beside
+   the host draw's seconds.  From the serve phase to the mesh phase every
+   ``engine.fit`` is watched (:class:`InitDraws`, and each mesh rank's
+   counters): one on the card without ``init_params`` launches the kernel
+   once, any other fit never, and the kernel's row in the ``kernels`` line
+   counts those launches;
 6. train phase: ``engine.fit`` on the card for the widest
    EmbraceNetMultimodal (566 features, Adam lr 1e-3, batch 100, float32,
    fused kernel on) over learnable synthetic data from seed 0 (3,000 train
@@ -235,6 +245,7 @@ from embracenet_tpu_torch.models import embracenet
 from embracenet_tpu_torch.models.layers import _highest_matmul_precision
 from embracenet_tpu_torch.models.reload import ReloadedModel, load_model
 from embracenet_tpu_torch.ops import embrace as K
+from embracenet_tpu_torch.ops import mt19937
 from embracenet_tpu_torch.training import engine
 from embracenet_tpu_torch.training.batching import balanced_plan, eval_plan
 from embracenet_tpu_torch.training.bucketing import plan_buckets
@@ -252,6 +263,7 @@ from embracenet_tpu_torch.utils.profiling import counters, reset_counters
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 import torch_embrace_bench as bench  # noqa: E402
+import torch_init_draws_bench as init_draws  # noqa: E402
 
 MAIN = dict(B=4096, D0=256, D1=7936, E=1024, live=1024)
 RAGGED = dict(B=100, D0=200, D1=5568, E=768, live=512)
@@ -287,6 +299,47 @@ def require(cond, what):
 def fused_launches(name="embrace.launches"):
     """Launches of a fused kernel since the counters were last reset."""
     return counters().get(name, 0)
+
+
+class InitDraws:
+    """Wraps ``engine.fit`` over the main-path phases: a fit on the card
+    without ``init_params`` draws its init there, one launch of the MT19937
+    kernel (``mt19937.launches``); a fit on the CPU or given its init
+    launches none.  Counts those fits and launches, in all and per phase
+    (:meth:`lap`)."""
+
+    def __init__(self):
+        import inspect
+
+        self.real = engine.fit
+        self.signature = inspect.signature(engine.fit)
+        self.fits = self.launches = 0
+        self.phases, self._lap = {}, (0, 0)
+
+    def __call__(self, *args, **kw):
+        bound_args = self.signature.bind(*args, **kw).arguments
+        mesh = bound_args.get("mesh")
+        dev = (mesh.device if mesh is not None
+               else et.resolve_device(bound_args.get("device")))
+        on_card = (torch.device(dev).type == "cuda"
+                   and bound_args.get("init_params") is None)
+        before = counters().get("mt19937.launches", 0)
+        res = self.real(*args, **kw)
+        launched = counters().get("mt19937.launches", 0) - before
+        require(launched == int(on_card), f"init draws: a fit on {dev} "
+                f"{'without' if bound_args.get('init_params') is None else 'with'}"
+                f" init_params launched the MT19937 kernel {launched} times, "
+                f"expected {int(on_card)}")
+        self.fits += int(on_card)
+        self.launches += launched
+        return res
+
+    def lap(self, phase):
+        """File the fits and launches since the last lap under ``phase``."""
+        now = (self.fits, self.launches)
+        self.phases[phase] = {"card_fits": now[0] - self._lap[0],
+                              "launches": now[1] - self._lap[1]}
+        self._lap = now
 
 
 def case_inputs(shape, dtype, dev, gen):
@@ -1739,12 +1792,8 @@ def param_diff(res, ref):
 def population_init(spec, hps, cfg):
     """The init ``engine.fit`` draws for the population (its
     ``seed_streams``), stacked over trials."""
-    init_seeds, _ = engine.seed_streams(cfg.seed, len(hps))
-    inits = [spec.init_from_fans(torch.Generator().manual_seed(int(s)),
-                                 spec.fan_ins(hp))
-             for s, hp in zip(init_seeds, hps)]
-    return (engine.stack_trials([i[0] for i in inits]),
-            engine.stack_trials([i[1] for i in inits]))
+    return engine.host_init(spec, hps,
+                            engine.seed_streams(cfg.seed, len(hps))[0])
 
 
 def adam_first_step_excess(new_s, new_w, params, g_s, g_w, lr, wd):
@@ -1940,6 +1989,7 @@ def mesh_worker(workdir) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         out[name] = {"wall_s": wall, "launches": fused_launches(),
+                     "init_launches": fused_launches("mt19937.launches"),
                      "row_bases": sorted(bases), "allreduce_s": reduce_s[0],
                      "allreduce_calls": reduce_s[1], "device": str(mesh.device),
                      "coords": mesh.coords, "hist": fit_history(res),
@@ -2043,6 +2093,10 @@ def mesh_phase(workdir):
         require(trial["hist"] == want and trial["params"]["equal"],
                 f"mesh: rank {r['rank']}'s 2 x 1 trial mesh differs from the "
                 f"meshless fit ({trial['params']})")
+        require(trial["init_launches"] == data["init_launches"] == 1,
+                f"mesh: rank {r['rank']} launched the MT19937 kernel "
+                f"{trial['init_launches']} and {data['init_launches']} times "
+                "in its two fits, expected once a fit")
         require(trial["launches"] == per_trial and trial["row_bases"] == [0],
                 f"mesh: rank {r['rank']} of the trial mesh launched "
                 f"{trial['launches']} at rows {trial['row_bases']}, expected "
@@ -2087,6 +2141,9 @@ def mesh_phase(workdir):
     steps = cfg.num_epochs * n_tr                   # stacked steps
     return {"launches": ref_launches + one_launches
             + sum(r[m]["launches"] for r in ranks for m in ("trial_2x1", "data_1x2")),
+            "init_launches": sum(r[m]["init_launches"] for r in ranks
+                                 for m in ("trial_2x1", "data_1x2")),
+            "init_card_fits": 2 * len(ranks),
             "plan_widths": [w_tr, w_ev],
             "windows": windows, "train_steps_per_trial": n_tr,
             "eval_batches_per_trial": n_ev,
@@ -2165,15 +2222,17 @@ def main() -> int:
         walls[phase] = now - clock[0]
         clock[0] = now
 
-    t0 = time.perf_counter()
-    K.build()
-    K._load()
-    print(json.dumps({"build_s": time.perf_counter() - t0,
-                      "nvcc_s": K.BUILD_SECONDS}), flush=True)
+    for source, load in ((K.SOURCE, K._load), (mt19937.SOURCE, mt19937._load)):
+        t0 = time.perf_counter()
+        built = K.build(source)
+        load()
+        print(json.dumps({"source": source.name,
+                          "build_s": time.perf_counter() - t0,
+                          "nvcc_s": built.seconds}), flush=True)
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"ptxas ({source.name}):", line.strip(), flush=True)
     lap("build")
-    for line in K.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print("ptxas:", line.strip(), flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     cases, fulle_cases = [], []
@@ -2206,8 +2265,28 @@ def main() -> int:
         grads = grad_phase(shape, dev, gen)
         print(json.dumps({"gradient": grads, "card": card}), flush=True)
     lap("gradient")
+    # the MT19937 kernel: the pop8 population and CNN_LSTM's longest stream
+    draws = init_draws.run(dev, seed=0, reps=1, byarch=(1,))
+    require(all(c["equal"] for c in draws), "init draws: the card drew "
+            "other numbers than the CPU generators")
+    # a warm-up and a timed rep, each the kernel alone and init_population,
+    # and one profiled call
+    require(all(c["launches"] == 5 for c in draws),
+            "init draws: the kernel was not launched once a call")
+    print(json.dumps({"init_draws": draws, "card": card}), flush=True)
+    lap("init_draws")
 
     build_dir = os.path.join(REPO, "embracenet_tpu_torch", "_build")
+    # every fit of the main-path phases, in this process (the mesh ranks
+    # count their own): the init kernel once a card fit without init_params
+    init_fits = InitDraws()
+    engine.fit = init_fits
+    phase_lap = lap
+
+    def lap(phase):
+        phase_lap(phase)
+        init_fits.lap(phase)
+
     shapes = ShapeLog()
     K.fused_embrace = shapes
     try:
@@ -2259,6 +2338,16 @@ def main() -> int:
         lap("mesh")
     finally:
         K.fused_embrace = shapes.real
+    engine.fit = init_fits.real
+    init_fits.phases["mesh"]["card_fits"] += mesh_out["init_card_fits"]
+    init_fits.phases["mesh"]["launches"] += mesh_out["init_launches"]
+    init_launches = sum(p["launches"] for p in init_fits.phases.values())
+    init_card_fits = sum(p["card_fits"] for p in init_fits.phases.values())
+    require(init_card_fits > 0 and init_launches == init_card_fits,
+            f"init draws: {init_launches} MT19937 launches in the main-path "
+            f"phases' {init_card_fits} card fits without init_params")
+    print(json.dumps({"init_draws_main_path": init_fits.phases,
+                      "card": card}), flush=True)
 
     # -- the kernel at every layout the serve, train, CV, data, sweep,
     # report, CLI and mesh phases gave it, the mesh workers' included --
@@ -2290,6 +2379,20 @@ def main() -> int:
                 "library_ms": main_f32["library_ms"],
                 "trials_8_b100": trial_axis}
 
+    def init_row(launches, cs):
+        """The MT19937 kernel: its main-path launches; times of the pop8
+        case (8 streams of 11.96 M words); plain_ms the host draw and stack
+        it replaces; no library draws this generator on the card."""
+        pop8 = cs[0]
+        return {"name": "mt19937_uniform_init", "route": "cuda",
+                "source": "embracenet_tpu_torch/csrc/mt19937.cu",
+                "replaces": None, "launches": launches,
+                "max_abs_err": 0.0 if all(c["equal"] for c in cs) else None,
+                "ms": pop8["kernel_ms"], "device_ms": pop8["device_ms"],
+                "plain_ms": pop8["plain_ms"], "bound_ms": pop8["bound_ms"],
+                "bound_by": "bytes", "library_ms": None,
+                "words_per_s_per_stream": pop8["words_per_s_per_stream"]}
+
     print(card, flush=True)
     print(json.dumps({"kernels": [
         row("embrace_fused_fwd", 39,
@@ -2301,7 +2404,8 @@ def main() -> int:
         row("embrace_fused_fwd_fulle", 78, bench_out["launches_fulle"],
             fulle_cases + [{"dtype": c["dtype"],
                             "max_abs_err": c["fulle_max_abs_err"]}
-                           for c in trial_cases])]}), flush=True)
+                           for c in trial_cases]),
+        init_row(init_launches, draws)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -116,9 +116,31 @@ def trial_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b)
 
 
+class InitPlan:
+    """A stand-in for the generator of a trial's init that records what
+    :func:`torch_uniform_init` would draw from it, in stream order: each
+    draw's shape and bound, and the placeholder leaf (a tensor on the meta
+    device) the init puts where that draw goes.  The init's own code thus
+    gives the plan that ``ops/mt19937.uniform_init`` draws on the card
+    (``training/engine.init_population``)."""
+
+    def __init__(self):
+        self.shapes, self.bounds, self.leaves = [], [], []
+
+    def draw(self, shape: tuple, bound: float) -> torch.Tensor:
+        leaf = torch.empty(shape, device="meta")
+        self.shapes.append(shape)
+        self.bounds.append(bound)
+        self.leaves.append(leaf)
+        return leaf
+
+
 def torch_uniform_init(generator: torch.Generator, shape, fan_in) -> torch.Tensor:
-    """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) — torch Linear/Conv1d default."""
+    """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) — torch Linear/Conv1d default.
+    From an :class:`InitPlan` the draw is recorded, not made."""
     bound = 1.0 / max(float(fan_in), 1.0) ** 0.5
+    if isinstance(generator, InitPlan):
+        return generator.draw(tuple(int(d) for d in shape), bound)
     u = torch.rand(tuple(shape), generator=generator, dtype=torch.float32,
                    device=generator.device)
     return (u * 2.0 - 1.0) * bound

@@ -93,9 +93,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
-#: what the last build printed (ptxas registers / spills) and its seconds
-BUILD_LOG = ""
-BUILD_SECONDS = 0.0
+
+
+class Built(NamedTuple):
+    """A kernel file's shared library, what its nvcc run printed (ptxas'
+    registers and spills) and that run's seconds (0.0 where the library was
+    already built)."""
+    path: Path
+    log: str
+    seconds: float
 
 
 def _nvcc() -> str:
@@ -105,39 +111,42 @@ def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     path = os.path.join(cuda_home, "bin", "nvcc")
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the fused embrace kernel is built "
-                           "from csrc/embrace.cu with the CUDA toolkit")
+        raise RuntimeError("nvcc not found: the port's kernels are built "
+                           "from csrc/*.cu with the CUDA toolkit")
     return path
 
 
-def build() -> Path:
-    """Compile ``csrc/embrace.cu`` (once per source content) and return the
-    shared library's path."""
-    global BUILD_LOG, BUILD_SECONDS
-    src = SOURCE.read_bytes()
+def build(source: Path = SOURCE) -> Built:
+    """Compile ``source`` (``csrc/embrace.cu`` unless another of the port's
+    kernel files is named; once per source content) into
+    ``_build/lib<stem>_<tag>.so``, its nvcc output kept beside it as
+    ``.log``, and return both with the build's seconds."""
+    src = source.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libembrace_{tag}.so"
+    lib = BUILD_DIR / f"lib{source.stem}_{tag}.so"
+    log = lib.with_suffix(".log")
     if lib.exists():
-        return lib
+        return Built(lib, log.read_text() if log.exists() else "", 0.0)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
                           capture_output=True, text=True)
-    BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = proc.stdout + proc.stderr
+    seconds = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{BUILD_LOG}")
+        raise RuntimeError(f"nvcc failed on {source}:\n{text}")
+    log.write_text(text)
     os.replace(tmp, lib)  # atomic: a concurrent process never sees half a file
-    return lib
+    return Built(lib, text, seconds)
 
 
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(build().path))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         # dtype, (x0, x1, w0, w1: pointer, row stride, trial stride), b0,
         # b1, p0, e_mask, out, choose, T, B, D0, D1, E, seed, seed_dev,

@@ -34,21 +34,25 @@ kernel and its gradient (``ops/embrace.py``) unless
 optimizer state replace the old ones, as the JAX update computes them.
 
 Random streams: the JAX PRNG keys become per-trial integer seeds
-(:func:`seed_streams`): an init seed feeds the trial's ``torch.Generator``
-for its parameter init, a run seed a numpy generator that gives every batch
-step of the trial its forward seed, the seed of the step's generator of
-that trial.  Same distributions as the JAX package, different streams.
+(:func:`seed_streams`): an init seed feeds the trial's CPU
+``torch.Generator`` for its parameter init (on the card the MT19937 kernel
+draws that generator's numbers in place, :func:`init_population`), a run
+seed a numpy generator that gives every batch step of the trial its
+forward seed, the seed of the step's generator of that trial.  Same
+distributions as the JAX package, different streams.
 
 Spans and counters (``utils.profiling``; spans record only inside a torch
 profile): ``engine.fit`` holds ``engine.fit.setup`` (everything before the
-first step: the host init, the stack, every copy to the device, the
-plans), one ``engine.step`` a stacked train step (``engine.step.gather``,
-``engine.step.draws`` and, in :func:`population_step`,
-``engine.forward``, ``engine.backward`` and ``engine.update``), one
-``engine.eval`` an epoch's evaluation and one ``engine.fetch`` a chunk's
-metric fetch and host bookkeeping.  The counters ``engine.train_steps``
-and ``engine.to_device_bytes`` count the stacked train steps and the bytes
-a fit copies to its device.
+first step: the init, drawn on the card or on the host and stacked, every
+copy to the device, the plans), one ``engine.step`` a stacked train step
+(``engine.step.gather``, ``engine.step.draws`` and, in
+:func:`population_step`, ``engine.forward``, ``engine.backward`` and
+``engine.update``), one ``engine.eval`` an epoch's evaluation and one
+``engine.fetch`` a chunk's metric fetch and host bookkeeping.  The
+counters ``engine.train_steps``, ``engine.to_device_bytes`` and
+``engine.init_device_draws`` count the stacked train steps, the bytes a
+fit copies to its device and the initial parameters a fit draws on its
+device.
 
 Under a mesh (``parallel/mesh.py``) each rank trains its block of the
 population (the trial axes) on its columns of every batch (the 'data'
@@ -75,10 +79,12 @@ from embracenet_tpu_torch import resolve_device
 from embracenet_tpu_torch.config import TrainConfig
 from embracenet_tpu_torch.convert import (tree_leaves, tree_map, tree_to_torch,
                                           tree_unflatten)
-from embracenet_tpu_torch.models.layers import (Draws, Trials, exact_float32,
+from embracenet_tpu_torch.models.layers import (Draws, InitPlan, Trials,
+                                                exact_float32,
                                                 population_invariant,
                                                 stack_hps)
 from embracenet_tpu_torch.ops import losses, metrics, optim
+from embracenet_tpu_torch.ops.mt19937 import uniform_init
 from embracenet_tpu_torch.parallel.mesh import (BatchShard, batch_sharding,
                                                 gather_trials, resolve_mesh,
                                                 shard_population,
@@ -201,6 +207,59 @@ def _to_device(tree, device):
                    .contiguous(), tree)
     count("engine.to_device_bytes", sum(a.nbytes for a in tree_leaves(out)))
     return out
+
+
+def _init_one(spec: ModelSpec, generator, hp):
+    """One trial's ``(params, bn_state)`` from ``generator`` (a
+    ``torch.Generator`` or a ``layers.InitPlan``); a family without fan-ins
+    (CNN_LSTM: shapes follow the trial) inits from its hyperparameters."""
+    if spec.init_from_fans is None:
+        return spec.init(generator, hp)
+    return spec.init_from_fans(generator, spec.fan_ins(hp))
+
+
+def host_init(spec: ModelSpec, hps, seeds):
+    """The population's init drawn on the host, ``(params, bn_state)``
+    stacked over trials on the CPU: trial t from a CPU ``torch.Generator``
+    seeded with ``seeds[t]``."""
+    inits = [_init_one(spec, torch.Generator().manual_seed(int(s)), hp)
+             for s, hp in zip(seeds, hps)]
+    return (stack_trials([i[0] for i in inits]),
+            stack_trials([i[1] for i in inits]))
+
+
+def init_population(spec: ModelSpec, hps, seeds, device):
+    """The population's init, ``(params, bn_state)`` stacked over trials on
+    ``device``: trial t's numbers are what its init draws from a CPU
+    ``torch.Generator`` seeded with ``seeds[t]``, bit for bit.  Each
+    trial's init runs once against a ``layers.InitPlan``, which records its
+    draws (shapes and bounds, in stream order); ``ops/mt19937.uniform_init``
+    then draws them all, on the card by its kernel, written in place with
+    no host draw and no copy, on the CPU by its plain version.  Leaves the
+    init does not draw (BatchNorm's constants) are stacked and copied.
+    Counts the numbers drawn in ``engine.init_device_draws``."""
+    plans = [InitPlan() for _ in hps]
+    trees = [_init_one(spec, plan, hp) for plan, hp in zip(plans, hps)]
+    shapes = plans[0].shapes
+    if any(p.shapes != shapes for p in plans):
+        raise ValueError(f"{spec.name}: the trials draw leaves of different "
+                         "shapes; a population stacks one shape a leaf")
+    drawn = uniform_init(shapes, [p.bounds for p in plans], seeds, device)
+    count("engine.init_device_draws", sum(d.numel() for d in drawn))
+    where = [{id(leaf): k for k, leaf in enumerate(p.leaves)} for p in plans]
+
+    def stacked(*leaves):
+        ks = {w.get(id(a)) for w, a in zip(where, leaves)}
+        if ks == {None}:
+            return _to_device(torch.stack([torch.as_tensor(a)
+                                           for a in leaves]), device)
+        if len(ks) != 1:
+            raise ValueError(f"{spec.name}: the trials put different draws "
+                             "at one leaf")
+        return drawn[ks.pop()]
+
+    return (tree_map(stacked, *[t[0] for t in trees]),
+            tree_map(stacked, *[t[1] for t in trees]))
 
 
 def _device_data(data, spec: ModelSpec, device):
@@ -379,7 +438,9 @@ def fit(spec: ModelSpec,
     ``cfg.seed``) derives the per-trial ``init_seeds`` / ``run_seeds``
     (:func:`seed_streams`) unless they are given.  ``init_params`` /
     ``init_bn_state``: trees stacked over trials (numpy arrays, tensors, or
-    a JAX ``FitResult``'s params through numpy).  ``report_fn`` (optional)
+    a JAX ``FitResult``'s params through numpy); without them a fit on
+    the card draws its init there (:func:`init_population`), one on the CPU
+    on the host, the same numbers either way.  ``report_fn`` (optional)
     is called per epoch with (trial_idx, epoch, test_auprc) -> bool prune.
 
     ``train_plans``/``eval_plans`` (optional): one BatchPlan per trial,
@@ -448,30 +509,31 @@ def fit(spec: ModelSpec,
             mesh, hp_list, opt_list, init_seeds, run_seeds)
         n_local = len(hps)
 
-        # population init: trial by trial from its own generator, on the
-        # host (the same numbers on either device), then one copy to the
-        # device; a family without fan-ins (CNN_LSTM: shapes follow the
-        # trial) inits from its hyperparameters
-        if init_params is None:
-            def init_one(seed_, hp):
-                gen = torch.Generator().manual_seed(int(seed_))
-                if spec.init_from_fans is None:
-                    return spec.init(gen, hp)
-                return spec.init_from_fans(gen, spec.fan_ins(hp))
-
-            inits = [init_one(s, hp) for s, hp in zip(my_init_seeds, hps)]
-            params = stack_trials([i[0] for i in inits])
-            bn_state = stack_trials([i[1] for i in inits])
+        # population init: each trial's numbers from its own CPU
+        # generator's stream, the same on either device.  On the card the
+        # MT19937 kernel draws them in place (init_population); on the
+        # CPU, and for given trees, the host draws or holds them and they
+        # are copied
+        on_card = init_params is None and dev.type == "cuda"
+        if on_card:
+            params, bn_state = init_population(spec, hps, my_init_seeds, dev)
         else:
-            params, bn_state = shard_population(
-                mesh, tree_to_torch(init_params, "cpu"),
-                tree_to_torch(init_bn_state or {}, "cpu"))
-        params = tree_to_torch(params, "cpu")
-        bn_state = tree_to_torch(bn_state or {}, "cpu")
+            if init_params is None:
+                params, bn_state = host_init(spec, hps, my_init_seeds)
+            else:
+                params, bn_state = shard_population(
+                    mesh, tree_to_torch(init_params, "cpu"),
+                    tree_to_torch(init_bn_state or {}, "cpu"))
+            params = tree_to_torch(params, "cpu")
+            bn_state = tree_to_torch(bn_state or {}, "cpu")
         if shrunk:
             params, bn_state = slicing.shrink(spec.name, params, bn_state,
                                               statics)
-        params, bn_state = _to_device((params, bn_state), dev)
+        if on_card:
+            params, bn_state = tree_map(lambda a: a.contiguous(),
+                                        (params, bn_state))
+        else:
+            params, bn_state = _to_device((params, bn_state), dev)
         opt_state = optim.init_state(params, state_dtype, use_master,
                                      lead=(n_local,))
         if use_master:

@@ -5,8 +5,9 @@ card and a study's search, a 1 x 1 NCCL mesh, the kernels' row_base,
 the checkpoint's second backend saving tensors on the card, the
 program's spans on the device trace's clock, the float32 population
 convolution's GEMM path (a trial's sums alike in any population, against
-cuDNN's grouped convolution), and CNN_LSTM's recurrence against cuDNN's
-LSTM called directly.
+cuDNN's grouped convolution), CNN_LSTM's recurrence against cuDNN's
+LSTM called directly, and a population's initial parameters drawn by the
+MT19937 kernel against the CPU generators' draws, bit for bit.
 They skip without a card.  This file imports neither JAX nor the
 JAX package, so the machine with the card runs it on its own:
 
@@ -768,3 +769,121 @@ def test_fit_on_the_card_runs_its_convolutions_as_gemms(cuda):
                TrainConfig(num_epochs=2, epoch_chunk=2, batch_size=100))
     # 4 train batches and 1 eval batch an epoch
     assert profiling.counters()["conv.gemm"] - before == 2 * (4 + 1)
+
+
+def _cell_population(config):
+    """A benchmark configuration's population: (spec, hps), as
+    ``tools/torch_init_draws_bench.py`` reads it."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import torch_init_draws_bench
+
+    return torch_init_draws_bench.population(config)
+
+
+def _same_init(got, want):
+    from embracenet_tpu_torch.convert import tree_leaves
+
+    got, want = tree_leaves(got), tree_leaves(want)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert a.shape == b.shape and a.is_contiguous()
+        assert torch.equal(a.cpu(), b), "the card drew other numbers"
+
+
+def test_device_draws_equal_the_host_draws_for_the_pop8_population(cuda):
+    """The 8 supernet trials of ``embracenet-hepg2`` (11.96 M numbers
+    each), seeded as a fit seeds them: the kernel's leaves are the CPU
+    generators' bit for bit, and it launches once."""
+    spec, hps = _cell_population("embracenet-hepg2")
+    seeds, _ = engine.seed_streams(2**31 + 12345, len(hps))
+    before = _launches("mt19937.launches")
+    got = engine.init_population(spec, hps, seeds, cuda)
+    torch.cuda.synchronize()
+    assert _launches("mt19937.launches") == before + 1
+    _same_init(got, engine.host_init(spec, hps, seeds))
+
+
+@pytest.mark.parametrize("trial", range(8))
+def test_device_draws_equal_the_host_draws_for_each_cnn_lstm_trial(cuda,
+                                                                    trial):
+    """Each of ``cnn_lstm-hepg2``'s 8 architectures as a lone fit draws it
+    (trial 1: one stream of ~127.1 M words), seeded as group ``trial`` of
+    a search."""
+    spec, hps = _cell_population("cnn_lstm-hepg2")
+    seeds, _ = engine.seed_streams(1900000505 + 7919 * trial, 1)
+    got = engine.init_population(spec, hps[trial:trial + 1], seeds, cuda)
+    _same_init(got, engine.host_init(spec, hps[trial:trial + 1], seeds))
+
+
+@pytest.mark.parametrize("n_trials,n_pad", [(1, 0), (3, 1), (5, 3)])
+def test_device_draws_of_one_trial_and_of_a_mesh_padded_population(
+        cuda, n_trials, n_pad):
+    """T = 1, and populations padded to a trial mesh's multiple with
+    copies of their last trial (seed and all), as ``engine.fit`` pads
+    them, at mixed widths."""
+    spec, hps = _cell_population("embracenet-hepg2")
+    seeds = list(range(2**32 - 2, 2**32 - 2 + n_trials))
+    (hps, seeds), _ = engine._pad_population(n_pad, (hps[:n_trials], seeds),
+                                             ())
+    _same_init(engine.init_population(spec, hps, seeds, cuda),
+               engine.host_init(spec, hps, seeds))
+
+
+@pytest.mark.parametrize("width_buckets", [False, True])
+def test_a_fit_on_the_card_starts_from_the_cpu_init(cuda, monkeypatch,
+                                                    width_buckets):
+    """``engine.fit`` on the card draws its population there: the params
+    its first step takes are the CPU init's bit for bit (cut to the width
+    buckets where the fit cuts them), ``engine.init_device_draws`` counts
+    every drawn number, and ``engine.to_device_bytes`` reads what the same
+    fit on the CPU copies less the drawn leaves."""
+    from embracenet_tpu_torch.convert import tree_leaves, tree_map
+    from embracenet_tpu_torch.models.layers import InitPlan
+    from embracenet_tpu_torch.training import slicing
+
+    spec, hps, opts, train, test = _fit_inputs()
+    hps, opts = hps * 2, opts * 2
+    first = []
+    step = engine.population_step
+
+    def spy(spec_, params, *args, **kw):
+        if not first:
+            first.append(tree_map(lambda a: a.detach().cpu().clone(), params))
+        return step(spec_, params, *args, **kw)
+
+    monkeypatch.setattr(engine, "population_step", spy)
+    cfg = TrainConfig(num_epochs=1, batch_size=100, seed=2**31 + 7,
+                      width_buckets=width_buckets)
+    counts = []
+    for dev in ("cpu", cuda):
+        first.clear()
+        profiling.reset_counters()
+        engine.fit(spec, hps, opts, train, test, cfg, device=dev)
+        counts.append(profiling.counters())
+    seeds, _ = engine.seed_streams(cfg.seed, 2)
+    params, bn_state = engine.host_init(spec, hps, seeds)
+    statics = engine._resolve_statics(spec, hps, cfg)
+    assert slicing.has_width_statics(statics) == width_buckets
+    if width_buckets:
+        params, bn_state = slicing.shrink(spec.name, params, bn_state,
+                                          statics)
+    for a, b in zip(tree_leaves(first[0]), tree_leaves(params)):
+        assert torch.equal(a, b)
+    plan = InitPlan()
+    constants = [a for a in tree_leaves(engine._init_one(spec, plan, hps[0]))
+                 if not a.is_meta]
+    drawn = 2 * sum(int(np.prod(s)) for s in plan.shapes)
+    cpu, card = counts
+    assert "engine.init_device_draws" not in cpu
+    assert card["engine.init_device_draws"] == drawn
+    assert card["mt19937.launches"] == 1
+    # the CPU copies the (cut) trees; the card only their constants, whole
+    assert card["engine.to_device_bytes"] == (
+        cpu["engine.to_device_bytes"]
+        - sum(a.nbytes for a in tree_leaves((params, bn_state)))
+        + 2 * sum(a.nbytes for a in constants))
