@@ -98,11 +98,6 @@ class TrainConfig:
     compute_dtype: str = "float32"  # "bfloat16" for matrix-unit speed
     seed: int = 789                 # Kfold_CV random_state default
     epoch_chunk: int = 10           # epochs per device call (dispatch batching)
-    cnn_full_depth: bool = False    # compile the conv stack at max depth so
-    #                                 every trial population shares one program
-    pad_ffnn_features: int | None = None  # pad tabular features to a fixed
-    #                                 width -> one compiled program across
-    #                                 cell lines (zero columns are inert)
     fused_embrace: bool | None = None  # run EmbraceNet docking + stochastic
     #                                 embracement as one fused kernel
     #                                 (ops/embrace.py); same distribution,
@@ -151,12 +146,6 @@ class CVConfig:
     sampler: str = "TPE"            # 'TPE' | 'random' | 'BO'
     type_augm_genfeatures: str = "smote"   # 'smote' | 'double'
     augmentation: bool = False      # multimodal augmentation path
-    share_programs: bool = False    # pad the retrain population and align
-    #                                 HPO/retrain shapes so one compiled
-    #                                 program serves the whole CV; trades
-    #                                 ~40% extra steady compute for one fewer
-    #                                 program compile+load; off by default,
-    #                                 as in the JAX package
     fuse_folds: bool | None = None  # train ALL folds' HPO populations (and
     #                                 all retrains) as single fused vmapped
     #                                 programs over fold-concatenated data:

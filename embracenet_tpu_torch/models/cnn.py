@@ -32,19 +32,16 @@ from embracenet_tpu_torch.config import (
     CNN_MAX_KERNEL,
     CNN_MAX_LAYERS,
 )
-from embracenet_tpu_torch.convert import tree_map
 from embracenet_tpu_torch.models.layers import (
-    Draws,
     Trials,
     batchnorm_init,
     batchnorm_trials,
     conv1d_trials,
-    default_generator,
     dropout_trials,
     kernel_tap_mask,
     linear,
     maxpool1d,
-    stack_hps,
+    one_trial,
     torch_uniform_init,
     width_mask,
 )
@@ -213,16 +210,6 @@ def apply_trials(params, bn_state, trials: Trials, x, *, train: bool = False,
             new_bn_state)
 
 
-def _one(params, bn_state, hp, x, train, generator, row_mask, shard):
-    """One trial as a population of one."""
-    draws = Draws.one(default_generator(generator, x.device), x.shape[0],
-                      x.device, shard) if train else None
-    stack = lambda tree: tree_map(lambda a: a[None], tree)  # noqa: E731
-    return (stack(params), stack(bn_state),
-            Trials([hp], stack_hps([hp], x.device), None, draws),
-            None if row_mask is None else row_mask[None])
-
-
 def features(params, bn_state, hp, x, *, train: bool = False, generator=None,
              row_mask=None, compute_dtype=None, max_depth: int | None = None,
              max_channels: tuple | None = None,
@@ -230,13 +217,14 @@ def features(params, bn_state, hp, x, *, train: bool = False, generator=None,
     """Headless forward of one trial, ``x [B, 4, 256]`` ->
     ``(flat [B, FB], flat_mask [FB], new_bn_state)``:
     :func:`features_trials` of a population of one."""
-    p, bn, trials, mask = _one(params, bn_state, hp, x, train, generator,
-                               row_mask, shard)
+    trials, stack, unstack = one_trial(hp, x.shape[0], x.device, generator,
+                                       train, shard)
     flat, flat_mask, new_bn = features_trials(
-        p, bn, trials, x, train=train, row_mask=mask,
-        compute_dtype=compute_dtype, max_depth=max_depth,
-        max_channels=max_channels, max_kernels=max_kernels, shard=shard)
-    return flat[0], flat_mask[0], tree_map(lambda a: a[0], new_bn)
+        stack(params), stack(bn_state), trials, x, train=train,
+        row_mask=stack(row_mask), compute_dtype=compute_dtype,
+        max_depth=max_depth, max_channels=max_channels,
+        max_kernels=max_kernels, shard=shard)
+    return flat[0], flat_mask[0], unstack(new_bn)
 
 
 def apply(params, bn_state, hp, x, *, train: bool = False, generator=None,
@@ -245,10 +233,11 @@ def apply(params, bn_state, hp, x, *, train: bool = False, generator=None,
           max_kernels: tuple | None = None, shard=None):
     """Headful forward of one trial -> (logits [B, n_classes],
     new_bn_state)."""
-    p, bn, trials, mask = _one(params, bn_state, hp, x, train, generator,
-                               row_mask, shard)
+    trials, stack, unstack = one_trial(hp, x.shape[0], x.device, generator,
+                                       train, shard)
     logits, new_bn = apply_trials(
-        p, bn, trials, x, train=train, row_mask=mask,
-        compute_dtype=compute_dtype, max_depth=max_depth,
-        max_channels=max_channels, max_kernels=max_kernels, shard=shard)
-    return logits[0], tree_map(lambda a: a[0], new_bn)
+        stack(params), stack(bn_state), trials, x, train=train,
+        row_mask=stack(row_mask), compute_dtype=compute_dtype,
+        max_depth=max_depth, max_channels=max_channels,
+        max_kernels=max_kernels, shard=shard)
+    return logits[0], unstack(new_bn)

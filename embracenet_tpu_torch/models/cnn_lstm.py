@@ -28,9 +28,7 @@ from __future__ import annotations
 import torch
 
 from embracenet_tpu_torch.config import CNN_LSTM_HIDDEN_MENU
-from embracenet_tpu_torch.convert import tree_map
 from embracenet_tpu_torch.models.layers import (
-    Draws,
     Trials,
     batchnorm_init,
     batchnorm_trials,
@@ -39,7 +37,7 @@ from embracenet_tpu_torch.models.layers import (
     exact_float32,
     linear,
     maxpool1d,
-    stack_hps,
+    one_trial,
     torch_uniform_init,
 )
 from embracenet_tpu_torch.ops.convmath import CNN_LENGTHS
@@ -191,13 +189,9 @@ def apply(params, bn_state, hp, x, *, train: bool = False, seed: int = 0,
     :func:`apply_trials` of a population of one, its draws from a
     ``torch.Generator`` seeded with ``seed``; ``shard``: this rank's rows
     of a data-sharded batch (``parallel.mesh.BatchShard``)."""
-    dev = x.device
-    draws = Draws.one(torch.Generator(device=dev).manual_seed(int(seed)),
-                      x.shape[0], dev, shard) if train else None
-    stack = lambda tree: tree_map(lambda a: a[None], tree)  # noqa: E731
+    trials, stack, unstack = one_trial(hp, x.shape[0], x.device, seed,
+                                       train, shard)
     logits, new_bn = apply_trials(
-        stack(params), stack(bn_state),
-        Trials([hp], stack_hps([hp], dev), None, draws), x, train=train,
-        row_mask=None if row_mask is None else row_mask[None],
-        compute_dtype=compute_dtype, shard=shard)
-    return logits[0], tree_map(lambda a: a[0], new_bn)
+        stack(params), stack(bn_state), trials, x, train=train,
+        row_mask=stack(row_mask), compute_dtype=compute_dtype, shard=shard)
+    return logits[0], unstack(new_bn)

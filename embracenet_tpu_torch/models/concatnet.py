@@ -22,13 +22,11 @@ from embracenet_tpu_torch.config import CONCAT_MAX_POST_LAYERS, FFNN_MAX_WIDTH
 from embracenet_tpu_torch.models import cnn as cnn_mod
 from embracenet_tpu_torch.models import ffnn as ffnn_mod
 from embracenet_tpu_torch.models.cnn import FLAT_MAX
-from embracenet_tpu_torch.convert import tree_map
 from embracenet_tpu_torch.models.layers import (
-    Draws,
     Trials,
     dropout_trials,
     linear,
-    stack_hps,
+    one_trial,
     torch_uniform_init,
     width_mask,
 )
@@ -159,15 +157,12 @@ def apply(params, bn_state, hp, x_ffnn, x_cnn, *, train: bool = False,
     """Forward of one trial -> (logits [B, 2], new_bn_state):
     :func:`apply_trials` of a population of one, its draws from a
     ``torch.Generator`` seeded with ``seed``."""
-    dev = x_ffnn.device
-    draws = Draws.one(torch.Generator(device=dev).manual_seed(int(seed)),
-                      x_ffnn.shape[0], dev, shard) if train else None
-    stack = lambda tree: tree_map(lambda a: a[None], tree)  # noqa: E731
+    trials, stack, unstack = one_trial(hp, x_ffnn.shape[0], x_ffnn.device,
+                                       seed, train, shard)
     logits, new_bn = apply_trials(
-        stack(params), stack(bn_state),
-        Trials([hp], stack_hps([hp], dev), None, draws), x_ffnn[None], x_cnn,
-        train=train, row_mask=None if row_mask is None else row_mask[None],
-        compute_dtype=compute_dtype, cnn_max_depth=cnn_max_depth,
-        cnn_max_channels=cnn_max_channels, cnn_max_kernels=cnn_max_kernels,
-        ffnn_max_width=ffnn_max_width, post_max=post_max, shard=shard)
-    return logits[0], tree_map(lambda a: a[0], new_bn)
+        stack(params), stack(bn_state), trials, x_ffnn[None], x_cnn,
+        train=train, row_mask=stack(row_mask), compute_dtype=compute_dtype,
+        cnn_max_depth=cnn_max_depth, cnn_max_channels=cnn_max_channels,
+        cnn_max_kernels=cnn_max_kernels, ffnn_max_width=ffnn_max_width,
+        post_max=post_max, shard=shard)
+    return logits[0], unstack(new_bn)

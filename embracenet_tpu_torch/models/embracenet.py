@@ -48,15 +48,13 @@ from embracenet_tpu_torch.config import (
 from embracenet_tpu_torch.models import cnn as cnn_mod
 from embracenet_tpu_torch.models import ffnn as ffnn_mod
 from embracenet_tpu_torch.models.cnn import FLAT_MAX
-from embracenet_tpu_torch.convert import tree_map
 from embracenet_tpu_torch.models.layers import (
-    Draws,
     Trials,
     as_dtype,
     dropout_trials,
     linear,
+    one_trial,
     rand,
-    stack_hps,
     torch_uniform_init,
     width_mask,
 )
@@ -298,19 +296,15 @@ def apply(params, bn_state, hp, x_ffnn, x_cnn, *, train: bool = False,
     kernel is keyed by ``seed`` itself).  ``u`` ([B, E] uniforms) feeds
     the unfused draw; ``shard``: this rank's rows of a data-sharded
     batch."""
-    dev = x_ffnn.device
-    draws = Draws.one(torch.Generator(device=dev).manual_seed(int(seed)),
-                      x_ffnn.shape[0], dev, shard) if train else None
-    stack = lambda tree: tree_map(lambda a: a[None], tree)  # noqa: E731
+    trials, stack, unstack = one_trial(hp, x_ffnn.shape[0], x_ffnn.device,
+                                       seed, train, shard)
     logits, new_bn = apply_trials(
-        stack(params), stack(bn_state),
-        Trials([hp], stack_hps([hp], dev), None, draws), x_ffnn[None], x_cnn,
-        train=train, seed=seed,
-        row_mask=None if row_mask is None else row_mask[None],
-        availabilities=None if availabilities is None else availabilities[None],
+        stack(params), stack(bn_state), trials, x_ffnn[None], x_cnn,
+        train=train, seed=seed, row_mask=stack(row_mask),
+        availabilities=stack(availabilities),
         modality_dropout=modality_dropout, compute_dtype=compute_dtype,
         cnn_max_depth=cnn_max_depth, cnn_max_channels=cnn_max_channels,
         cnn_max_kernels=cnn_max_kernels, ffnn_max_width=ffnn_max_width,
         embrace_max=embrace_max, post_max=post_max, fused=fused, u=u,
         shard=shard)
-    return logits[0], tree_map(lambda a: a[0], new_bn)
+    return logits[0], unstack(new_bn)

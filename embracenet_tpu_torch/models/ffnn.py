@@ -22,12 +22,10 @@ import torch
 
 from embracenet_tpu_torch.config import FFNN_MAX_LAYERS, FFNN_MAX_WIDTH
 from embracenet_tpu_torch.models.layers import (
-    Draws,
     Trials,
-    default_generator,
     dropout_trials,
     linear,
-    stack_hps,
+    one_trial,
     torch_uniform_init,
     width_mask,
 )
@@ -118,22 +116,15 @@ def apply_trials(params, trials: Trials, x, *, train: bool = False,
                   compute_dtype)
 
 
-def _one(params, hp, x, train, generator, shard):
-    """One trial as a population of one: its params, hp and rows stacked."""
-    draws = Draws.one(default_generator(generator, x.device), x.shape[0],
-                      x.device, shard) if train else None
-    return ({k: v[None] for k, v in params.items()},
-            Trials([hp], stack_hps([hp], x.device), None, draws), x[None])
-
-
 def features(params, hp, x, *, train: bool = False, generator=None,
              compute_dtype=None, max_width: int | None = None, shard=None):
     """Headless forward of one trial -> ([B, W] masked features, [W] output
     mask): :func:`features_trials` of a population of one.  ``shard``: this
     rank's rows of a data-sharded batch (``parallel.mesh.BatchShard``;
     dropout draws by global row)."""
-    p, trials, xs = _one(params, hp, x, train, generator, shard)
-    h, out_mask = features_trials(p, trials, xs, train=train,
+    trials, stack, _ = one_trial(hp, x.shape[0], x.device, generator, train,
+                                 shard)
+    h, out_mask = features_trials(stack(params), trials, x[None], train=train,
                                   compute_dtype=compute_dtype,
                                   max_width=max_width)
     return h[0], out_mask[0]
@@ -143,6 +134,7 @@ def apply(params, hp, x, *, train: bool = False, generator=None,
           compute_dtype=None, max_width: int | None = None, shard=None):
     """Headful forward of one trial -> logits [B, n_classes] (reference
     ``FFNN``)."""
-    p, trials, xs = _one(params, hp, x, train, generator, shard)
-    return apply_trials(p, trials, xs, train=train, compute_dtype=compute_dtype,
-                        max_width=max_width)[0]
+    trials, stack, _ = one_trial(hp, x.shape[0], x.device, generator, train,
+                                 shard)
+    return apply_trials(stack(params), trials, x[None], train=train,
+                        compute_dtype=compute_dtype, max_width=max_width)[0]

@@ -15,6 +15,7 @@ activations as ``[B, T, C, L]``; float32 as batched products over im2col
 windows, else one grouped convolution), ``batchnorm_trials`` per-trial
 moments under a ``[T, B]`` row mask, ``width_mask`` / ``kernel_tap_mask``
 take ``[T]`` tensors, and :class:`Draws` gives each trial its own random draws.
+One trial runs as a population of one (:func:`one_trial`).
 
 Precision contract (as ``layers.py:65-98`` of the JAX package):
 
@@ -306,6 +307,33 @@ class Trials:
         if self.own is None:
             return [shape(pop)] * len(self)
         return [shape(o.get(key) or full) for o in self.own]
+
+
+def one_trial(hp, rows: int, device, generator, train: bool, shard=None):
+    """One trial as a population of one, the form every one-trial forward
+    and step runs in: ``(trials, stack, unstack)``.  ``trials`` holds
+    ``hp`` stacked ``[1, ...]`` on ``device`` and, in training only, the
+    trial's :class:`Draws` for a batch of ``rows`` rows (this ``shard``'s)
+    from ``generator``: a ``torch.Generator``, an int that seeds one on
+    ``device``, or None for the device's default generator.  ``stack``
+    puts a tree (tensors or arrays; None stays None) on ``device`` with a
+    leading trial axis of one, and ``unstack`` takes the trial out of a
+    stacked tree."""
+    draws = None
+    if train:
+        if generator is not None and not isinstance(generator, torch.Generator):
+            generator = torch.Generator(device).manual_seed(int(generator))
+        draws = Draws.one(default_generator(generator, device), rows, device,
+                          shard)
+
+    def stack(tree):
+        return None if tree is None else tree_map(
+            lambda a: torch.as_tensor(a, device=device)[None], tree)
+
+    def unstack(tree):
+        return None if tree is None else tree_map(lambda a: a[0], tree)
+
+    return Trials([hp], stack_hps([hp], device), None, draws), stack, unstack
 
 
 def dropout_trials(x: torch.Tensor, rate: torch.Tensor, u, train: bool,

@@ -21,21 +21,20 @@ per fold (both engines unified here because the model spec abstracts inputs):
      (= round(sum/n_folds, 5), `training_models.py:690-691`).
 
 Seeds: integer seeds take the place of the JAX package's PRNG keys.
-``weight_reset`` of replica ``r`` takes ``random_state + 100 + fold +
-1000 * r``; the sequential retrain fits with ``seed = random_state + 200 +
-fold`` and the fold-fused retrain takes its run seeds from
-``engine.seed_streams(random_state + 200 + fold, n_rep)``, the streams that
-fit derives from that seed, so both paths train each trial alike.  A
-fold-fused population pads every fold's batches to the widest fold's
-rows; the sequential path's fits run as many rows (``engine.fit``'s
-``plan_rows``, over the folds it trains), so its trials sum over the same
-batches as their fused copies.
+``weight_reset`` takes ``random_state + 100 + fold``; the sequential
+retrain fits with ``seed = random_state + 200 + fold`` and the fold-fused
+retrain takes its run seed from ``engine.seed_streams(random_state + 200 +
+fold, 1)``, the stream that fit derives from that seed, so both paths
+train each trial alike.  A fold-fused population pads every fold's
+batches to the widest fold's rows; the sequential path's fits run as many
+rows (``engine.fit``'s ``plan_rows``, over the folds it trains), so its
+trials sum over the same batches as their fused copies.
 
-Stated divergence: ``CVConfig.share_programs`` keeps its population
-padding (``n_rep`` replicas of the retrain, trial 0 kept) but not the JAX
-package's ``shape_targets``, which only make XLA reuse compiled programs;
-eager PyTorch compiles none.  Everything runs on the card unless
-``device`` says otherwise.
+Stated divergence: the JAX package's ``CVConfig.share_programs`` and
+``TrainConfig.pad_ffnn_features`` (a retrain padded to the search's
+population, features padded to a fixed width) only make XLA reuse compiled
+programs; eager PyTorch compiles none, and the port has neither.
+Everything runs on the card unless ``device`` says otherwise.
 
 Under a mesh (``mesh=``, any form ``parallel.mesh.resolve_mesh`` takes) the
 fold-fused path is the default (``CVConfig.fuse_folds=None``), as in the
@@ -54,7 +53,7 @@ import numpy as np
 import torch
 
 from embracenet_tpu_torch.config import CVConfig, TrainConfig
-from embracenet_tpu_torch.convert import tree_map, tree_to_numpy
+from embracenet_tpu_torch.convert import tree_to_numpy
 from embracenet_tpu_torch.data import sampling
 from embracenet_tpu_torch.hpo import space as space_mod
 from embracenet_tpu_torch.hpo.search import (concat_fold_views, run_search,
@@ -111,11 +110,6 @@ def rebalance_views(data: dict, views, type_augm: str, threshold: float,
     return out
 
 
-def _trial_trees(trees, t: int):
-    """Trial ``t``'s slice of a fit's host copy ``(params, bn_state)``."""
-    return tuple(tree_map(lambda a: a[t], tree) for tree in trees)
-
-
 def _plan_rows(pairs, batch_size: int) -> tuple:
     """(train, eval) rows of the widest batch plans over the folds' (train,
     eval) data pairs: what a fold-fused population's batches run."""
@@ -137,12 +131,11 @@ def _warn_no_best_model(study_name, fold):
         "have kept HPO-trained BatchNorm state)", RuntimeWarning, stacklevel=3)
 
 
-def _resets(spec, hp, best_model, random_state, fold, n_rep):
-    """``n_rep`` weight resets of the best trial (replica r seeded with
-    ``random_state + 100 + fold + 1000 * r``)."""
-    return [engine.weight_reset(random_state + 100 + fold + 1000 * r, spec,
-                                hp, best_model[0], best_model[1])
-            for r in range(n_rep)]
+def _reset(spec, hp, best_model, random_state, fold):
+    """The weight reset of the best trial, seeded with ``random_state + 100
+    + fold``: its ``(params, bn_state)``."""
+    return engine.weight_reset(random_state + 100 + fold, spec, hp,
+                               best_model[0], best_model[1])
 
 
 class KfoldCV:
@@ -225,16 +218,6 @@ class KfoldCV:
                 raise ValueError(f"model {model} requires data view {v!r}")
         y = np.asarray(data["y"])
         n = len(y)
-        if "ffnn" in views and train_cfg.pad_ffnn_features:
-            d = np.asarray(data["ffnn"]).shape[1]
-            if d > train_cfg.pad_ffnn_features:
-                raise ValueError(f"{d} features exceed pad_ffnn_features="
-                                 f"{train_cfg.pad_ffnn_features}")
-            if d < train_cfg.pad_ffnn_features:
-                data = dict(data)
-                data["ffnn"] = np.pad(
-                    np.asarray(data["ffnn"]),
-                    ((0, 0), (0, train_cfg.pad_ffnn_features - d)))
         in_features = (np.asarray(data["ffnn"]).shape[1]
                        if "ffnn" in views else None)
         spec = get_spec(model, in_features_ffnn=in_features)
@@ -303,21 +286,17 @@ class KfoldCV:
 
             hp = space_mod.params_to_hp(model, search.best_params)
             opt = space_mod.optimizer_hp(search.best_params)
-            # pad the retrain to the HPO population size (replicas differ
-            # only in their seeds; trial 0 is the retrained model)
-            n_rep = (cv_cfg.n_trials
-                     if cv_cfg.share_programs and spec.vmappable else 1)
             init_params = init_bn = None
             if search.best_model is not None:
                 # weight_reset: fresh Linear/Conv, keep trained BN (quirk)
-                resets = _resets(spec, hp, search.best_model, random_state,
-                                 fold, n_rep)
-                init_params = engine.stack_trials([r[0] for r in resets])
-                init_bn = engine.stack_trials([r[1] for r in resets])
+                params, bn = _reset(spec, hp, search.best_model, random_state,
+                                    fold)
+                init_params = engine.stack_trials([params])
+                init_bn = engine.stack_trials([bn])
             else:
                 _warn_no_best_model(study_name, fold)
 
-            result = engine.fit(spec, [hp] * n_rep, [opt] * n_rep,
+            result = engine.fit(spec, [hp], [opt],
                                 trainval_d, test_d, train_cfg,
                                 seed=random_state + 200 + fold,
                                 init_params=init_params, init_bn_state=init_bn,
@@ -330,7 +309,7 @@ class KfoldCV:
                 "F1_precision_recall": result.f1_precision_recall[0],
             }
             self.scores_dict[f"iteration_n_{fold}"] = fold_scores
-            trial0_tree = _trial_trees(
+            trial0_tree = engine._trial(
                 tree_to_numpy((result.params, result.bn_state)), 0)
             save_checkpoint(fold_ck,
                             {"params": trial0_tree[0],
@@ -399,7 +378,6 @@ class KfoldCV:
                 verbose=verbose, device=device, mesh=mesh)
 
             # ---- fused retrain: one population over all pending folds ----
-            n_rep = (n_trials if cv_cfg.share_programs else 1)
             cat_tr, off_tr = concat_fold_views([p[3] for p in pending],
                                                tuple(views) + ("y",))
             cat_te, off_te = concat_fold_views([p[4] for p in pending],
@@ -418,24 +396,22 @@ class KfoldCV:
                                           train_cfg.batch_size * 2, seed=123),
                                 off_te[j])
                 # the streams a sequential fit(seed=random_state + 200 +
-                # fold) of n_rep replicas draws
-                iseeds, rseeds = engine.seed_streams(
-                    random_state + 200 + fold, n_rep)
+                # fold) draws
+                (iseed,), (rseed,) = engine.seed_streams(
+                    random_state + 200 + fold, 1)
                 if search.best_model is not None:
                     # weight_reset: fresh Linear/Conv, keep trained BN
-                    init_trees += _resets(spec, hp, search.best_model,
-                                          random_state, fold, n_rep)
+                    init_trees.append(_reset(spec, hp, search.best_model,
+                                             random_state, fold))
                 else:
                     _warn_no_best_model(study_name, fold)
-                    init_trees += [spec.init(
-                        torch.Generator().manual_seed(int(iseeds[r])), hp)
-                        for r in range(n_rep)]
-                for r in range(n_rep):
-                    hp_list.append(hp)
-                    opt_list.append(opt)
-                    run_seeds.append(rseeds[r])
-                    train_plans.append(tp)
-                    eval_plans.append(ep)
+                    init_trees.append(spec.init(
+                        torch.Generator().manual_seed(int(iseed)), hp))
+                hp_list.append(hp)
+                opt_list.append(opt)
+                run_seeds.append(rseed)
+                train_plans.append(tp)
+                eval_plans.append(ep)
 
             result = engine.fit(
                 spec, hp_list, opt_list, cat_tr, cat_te, train_cfg,
@@ -448,15 +424,14 @@ class KfoldCV:
 
             trees = tree_to_numpy((result.params, result.bn_state))
             for j, (fold, *_rest) in enumerate(pending):
-                base = j * n_rep
                 search = searches[j]
                 fold_scores = {
-                    "AUPRC_train": result.auprc_train[base],
-                    "AUPRC_test": result.auprc_test[base],
-                    "F1_precision_recall": result.f1_precision_recall[base],
+                    "AUPRC_train": result.auprc_train[j],
+                    "AUPRC_test": result.auprc_test[j],
+                    "F1_precision_recall": result.f1_precision_recall[j],
                 }
                 self.scores_dict[f"iteration_n_{fold}"] = fold_scores
-                trial0_tree = _trial_trees(trees, base)
+                trial0_tree = engine._trial(trees, j)
                 fold_ck = os.path.join(checkpoint_dir,
                                        f"{study_name}_fold{fold}_result")
                 save_checkpoint(fold_ck,
@@ -466,8 +441,8 @@ class KfoldCV:
                                       "best_params": search.best_params,
                                       "model": model, "model_params":
                                       search.best_params}, mesh=mesh)
-                fold_final[fold] = (result.final_test_auprc[base],
-                                    result.final_train_auprc[base],
+                fold_final[fold] = (result.final_test_auprc[j],
+                                    result.final_train_auprc[j],
                                     trial0_tree, search.best_params)
                 if verbose:
                     print(f"fold {fold} test AUPRC: "

@@ -35,16 +35,16 @@ optimizer state replace the old ones, as the JAX update computes them.
 
 Random streams: the JAX PRNG keys become per-trial integer seeds
 (:func:`seed_streams`): an init seed feeds the trial's CPU
-``torch.Generator`` for its parameter init (on the card the MT19937 kernel
-draws that generator's numbers in place, :func:`init_population`), a run
+``torch.Generator`` for its parameter init, whose numbers the fit draws on
+its device (:func:`init_population`; on the card the MT19937 kernel), a run
 seed a numpy generator that gives every batch step of the trial its
 forward seed, the seed of the step's generator of that trial.  Same
 distributions as the JAX package, different streams.
 
 Spans and counters (``utils.profiling``; spans record only inside a torch
 profile): ``engine.fit`` holds ``engine.fit.setup`` (everything before the
-first step: the init, drawn on the card or on the host and stacked, every
-copy to the device, the plans), one ``engine.step`` a stacked train step
+first step: the init drawn on the fit's device, every copy to the device,
+the plans), one ``engine.step`` a stacked train step
 (``engine.step.gather``, ``engine.step.draws`` and, in
 :func:`population_step`, ``engine.forward``, ``engine.backward`` and
 ``engine.update``), one ``engine.eval`` an epoch's evaluation and one
@@ -80,7 +80,7 @@ from embracenet_tpu_torch.config import TrainConfig
 from embracenet_tpu_torch.convert import (tree_leaves, tree_map, tree_to_torch,
                                           tree_unflatten)
 from embracenet_tpu_torch.models.layers import (Draws, InitPlan, Trials,
-                                                exact_float32,
+                                                exact_float32, one_trial,
                                                 population_invariant,
                                                 stack_hps)
 from embracenet_tpu_torch.ops import losses, metrics, optim
@@ -188,12 +188,6 @@ def _resolve_statics(spec: ModelSpec, hp_list, cfg: TrainConfig) -> dict:
     if not cfg.width_buckets:
         for k in width_keys:
             statics.pop(k, None)
-    if cfg.cnn_full_depth and "cnn_max_depth" in statics:
-        from embracenet_tpu_torch.config import CNN_MAX_LAYERS
-
-        statics["cnn_max_depth"] = CNN_MAX_LAYERS
-        for k in width_keys:
-            statics.pop(k, None)
     if cfg.fused_embrace is not False and spec.name == "EmbraceNetMultimodal":
         statics["fused_embrace"] = True
     return statics
@@ -209,20 +203,12 @@ def _to_device(tree, device):
     return out
 
 
-def _init_one(spec: ModelSpec, generator, hp):
-    """One trial's ``(params, bn_state)`` from ``generator`` (a
-    ``torch.Generator`` or a ``layers.InitPlan``); a family without fan-ins
-    (CNN_LSTM: shapes follow the trial) inits from its hyperparameters."""
-    if spec.init_from_fans is None:
-        return spec.init(generator, hp)
-    return spec.init_from_fans(generator, spec.fan_ins(hp))
-
-
 def host_init(spec: ModelSpec, hps, seeds):
     """The population's init drawn on the host, ``(params, bn_state)``
-    stacked over trials on the CPU: trial t from a CPU ``torch.Generator``
-    seeded with ``seeds[t]``."""
-    inits = [_init_one(spec, torch.Generator().manual_seed(int(s)), hp)
+    stacked over trials on the CPU: trial t's ``spec.init`` from a CPU
+    ``torch.Generator`` seeded with ``seeds[t]``.  The reference that
+    :func:`init_population` is held to."""
+    inits = [spec.init(torch.Generator().manual_seed(int(s)), hp)
              for s, hp in zip(seeds, hps)]
     return (stack_trials([i[0] for i in inits]),
             stack_trials([i[1] for i in inits]))
@@ -239,7 +225,7 @@ def init_population(spec: ModelSpec, hps, seeds, device):
     init does not draw (BatchNorm's constants) are stacked and copied.
     Counts the numbers drawn in ``engine.init_device_draws``."""
     plans = [InitPlan() for _ in hps]
-    trees = [_init_one(spec, plan, hp) for plan, hp in zip(plans, hps)]
+    trees = [spec.init(plan, hp) for plan, hp in zip(plans, hps)]
     shapes = plans[0].shapes
     if any(p.shapes != shapes for p in plans):
         raise ValueError(f"{spec.name}: the trials draw leaves of different "
@@ -370,20 +356,13 @@ def train_step(spec: ModelSpec, params, bn_state, opt_state, hp, opt_hp,
     one, its draws from a ``torch.Generator`` seeded with ``seed``.
     Returns ``(loss, logits, new_params, new_bn_state, new_opt_state)``;
     the caller decides whether the new state is kept."""
-    dev = y.device
-
-    def stack(tree):
-        return tree_map(lambda a: torch.as_tensor(a, device=dev)[None], tree)
-
-    draws = Draws.one(torch.Generator(dev).manual_seed(int(seed)), y.shape[0],
-                      dev, shard)
+    trials, stack, unstack = one_trial(hp, y.shape[0], y.device, seed, True,
+                                       shard)
     loss, logits, new_p, new_bn, new_opt = population_step(
-        spec, stack(params), stack(bn_state), stack(opt_state),
-        Trials([hp], stack_hps([hp], dev), None, draws),
-        {k: torch.as_tensor(v, device=dev).reshape(1) for k, v in opt_hp.items()},
-        inputs, y, mask[None], compute_dtype, statics, shard)
-    return loss[0], logits[0], _trial(new_p, 0), _trial(new_bn, 0), \
-        _trial(new_opt, 0)
+        spec, stack(params), stack(bn_state), stack(opt_state), trials,
+        stack(opt_hp), inputs, y, stack(mask), compute_dtype, statics, shard)
+    return loss[0], logits[0], unstack(new_p), unstack(new_bn), \
+        unstack(new_opt)
 
 
 def _auprc_of(cfg, logits, y, mask, shard=None):
@@ -438,9 +417,9 @@ def fit(spec: ModelSpec,
     ``cfg.seed``) derives the per-trial ``init_seeds`` / ``run_seeds``
     (:func:`seed_streams`) unless they are given.  ``init_params`` /
     ``init_bn_state``: trees stacked over trials (numpy arrays, tensors, or
-    a JAX ``FitResult``'s params through numpy); without them a fit on
-    the card draws its init there (:func:`init_population`), one on the CPU
-    on the host, the same numbers either way.  ``report_fn`` (optional)
+    a JAX ``FitResult``'s params through numpy); without them the fit
+    draws its init on its device (:func:`init_population`), the same
+    numbers on either.  ``report_fn`` (optional)
     is called per epoch with (trial_idx, epoch, test_auprc) -> bool prune.
 
     ``train_plans``/``eval_plans`` (optional): one BatchPlan per trial,
@@ -510,26 +489,18 @@ def fit(spec: ModelSpec,
         n_local = len(hps)
 
         # population init: each trial's numbers from its own CPU
-        # generator's stream, the same on either device.  On the card the
-        # MT19937 kernel draws them in place (init_population); on the
-        # CPU, and for given trees, the host draws or holds them and they
-        # are copied
-        on_card = init_params is None and dev.type == "cuda"
-        if on_card:
+        # generator's stream, drawn where the fit runs (init_population);
+        # given trees are copied
+        if init_params is None:
             params, bn_state = init_population(spec, hps, my_init_seeds, dev)
         else:
-            if init_params is None:
-                params, bn_state = host_init(spec, hps, my_init_seeds)
-            else:
-                params, bn_state = shard_population(
-                    mesh, tree_to_torch(init_params, "cpu"),
-                    tree_to_torch(init_bn_state or {}, "cpu"))
-            params = tree_to_torch(params, "cpu")
-            bn_state = tree_to_torch(bn_state or {}, "cpu")
+            params, bn_state = shard_population(
+                mesh, tree_to_torch(init_params, "cpu"),
+                tree_to_torch(init_bn_state or {}, "cpu"))
         if shrunk:
             params, bn_state = slicing.shrink(spec.name, params, bn_state,
                                               statics)
-        if on_card:
+        if init_params is None:
             params, bn_state = tree_map(lambda a: a.contiguous(),
                                         (params, bn_state))
         else:

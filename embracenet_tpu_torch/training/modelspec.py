@@ -1,14 +1,15 @@
 """Uniform init/apply adapters over the model families (port of
 ``embracenet_tpu/training/modelspec.py``).
 
-``apply`` takes ``seed`` (an int that seeds the forward's random draws) in
-place of the JAX package's PRNG key, and ``init_from_fans`` a
-``torch.Generator`` in place of ``init_traced``'s key; everything else keeps
-the JAX calling convention.  ``apply`` is one trial; ``apply_trials`` is
-what ``jax.vmap(spec.apply)`` is in the JAX engine: a population's stacked
-params, BN state and hyperparameters (:func:`stack_hps`, in a
-``layers.Trials``) in one forward pass, each trial drawing from its own
-generator (``layers.Draws``).
+``init`` takes a ``torch.Generator`` (or a ``layers.InitPlan``) and
+``apply`` a ``seed`` (an int that seeds the forward's random draws) in
+place of the JAX package's PRNG keys; everything else keeps the JAX
+calling convention.  ``apply_trials`` is what ``jax.vmap(spec.apply)`` is
+in the JAX engine: a population's stacked params, BN state and
+hyperparameters (:func:`stack_hps`, in a ``layers.Trials``) in one forward
+pass, each trial drawing from its own generator (``layers.Draws``).  Each
+family writes only ``apply_trials``; its one-trial ``apply`` is that of a
+population of one (:func:`_one_trial_apply`).
 """
 
 from __future__ import annotations
@@ -22,9 +23,10 @@ import torch
 
 from embracenet_tpu_torch.data import codec
 from embracenet_tpu_torch.models import cnn, cnn_lstm, concatnet, embracenet, ffnn
+from embracenet_tpu_torch.models.layers import as_dtype, one_trial
 # stack_hps, the JAX engine's ``stack_trials(hp_list)``, is exported here
 # beside the specs whose ``apply_trials`` reads what it stacks
-from embracenet_tpu_torch.models.layers import as_dtype, stack_hps  # noqa: F401
+from embracenet_tpu_torch.models.layers import stack_hps  # noqa: F401
 
 MODEL_FAMILIES = ("FFNN", "CNN", "CNN_LSTM", "EmbraceNetMultimodal",
                   "ConcatNetMultimodal")
@@ -42,9 +44,6 @@ class ModelSpec:
     vmappable: bool = True     # False: shapes vary per trial; HPO fits
     #                            each architecture as its own population
     fan_ins: Callable = None   # hp_concrete -> fan-in tree (numpy)
-    init_from_fans: Callable = None  # (generator, fans) -> (params, bn_state):
-    #                                  a population inits trial by trial from
-    #                                  per-trial generators (engine.fit)
     apply_trials: Callable = None  # (params, bn_state, trials, inputs, train,
     #                                row_mask, compute_dtype, statics, shard,
     #                                seed) -> (logits [T, B, 2], bn): the
@@ -94,21 +93,44 @@ def _post_width(hp_list, key, min_width=16):
     return w
 
 
-def _seq_input(inputs, compute_dtype):
-    """codes uint8 [B, 256] -> one-hot [B, 4, 256] on the codes' device."""
-    return codec.one_hot(inputs["cnn"], dtype=as_dtype(compute_dtype) or torch.float32)
-
-
 def _seq_trials(inputs, n_trials, compute_dtype):
     """codes uint8 [B, 256] (shared) or [T, B, 256] -> the CNN's one-hot
-    layout of a population, [B, T*4, 256]."""
-    return cnn.trial_channels(_seq_input(inputs, compute_dtype), n_trials)
+    layout of a population, [B, T*4, 256], on the codes' device."""
+    x = codec.one_hot(inputs["cnn"],
+                      dtype=as_dtype(compute_dtype) or torch.float32)
+    return cnn.trial_channels(x, n_trials)
 
 
 def _ffnn_trials(inputs, n_trials):
     """features [B, F] (shared) or [T, B, F] -> [T, B, F]."""
     x = inputs["ffnn"]
     return x.expand(n_trials, *x.shape).contiguous() if x.dim() == 2 else x
+
+
+def _one_trial_apply(apply_trials, key: str):
+    """``ModelSpec.apply`` from a family's ``apply_trials``: one trial as a
+    population of one (``layers.one_trial``), its draws from a
+    ``torch.Generator`` seeded with ``seed`` on the inputs' device, which
+    in eval mode also keys the fused kernel; ``key`` names an input whose
+    rows are the batch's."""
+    def apply(params, bn_state, hp, inputs, train, seed, row_mask,
+              compute_dtype, statics=None, shard=None):
+        x = inputs[key]
+        trials, stack, unstack = one_trial(hp, x.shape[0], x.device, seed,
+                                           train, shard)
+        logits, bn = apply_trials(stack(params), stack(bn_state), trials,
+                                  inputs, train, stack(row_mask),
+                                  compute_dtype, statics, shard, seed)
+        return logits[0], unstack(bn)
+    return apply
+
+
+def _spec(name, inputs, init, statics, apply_trials, **kw) -> ModelSpec:
+    """A family's spec, its one-trial ``apply`` derived from its
+    ``apply_trials``."""
+    return ModelSpec(name, inputs, init,
+                     _one_trial_apply(apply_trials, inputs[0]), statics,
+                     apply_trials=apply_trials, **kw)
 
 
 @functools.lru_cache(maxsize=None)
@@ -122,15 +144,6 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
         def init(generator, hp):
             return ffnn.init(generator, hp, in_features_ffnn), {}
 
-        def apply(params, bn_state, hp, inputs, train, seed, row_mask,
-                  compute_dtype, statics=None, shard=None):
-            gen = torch.Generator(inputs["ffnn"].device).manual_seed(int(seed))
-            logits = ffnn.apply(params, hp, inputs["ffnn"], train=train,
-                                generator=gen, compute_dtype=compute_dtype,
-                                max_width=(statics or {}).get("ffnn_max_width"),
-                                shard=shard)
-            return logits, bn_state
-
         def apply_trials(params, bn_state, trials, inputs, train, row_mask,
                          compute_dtype, statics=None, shard=None, seed=0):
             logits = ffnn.apply_trials(
@@ -139,26 +152,12 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
                 max_width=(statics or {}).get("ffnn_max_width"))
             return logits, bn_state
 
-        return ModelSpec(model, ("ffnn",), init, apply,
-                         lambda hps: {"ffnn_max_width": _ffnn_width(hps, key=None)},
-                         fan_ins=lambda hp: ffnn.fan_ins(hp, in_features_ffnn),
-                         init_from_fans=lambda gen, fans: (
-                             ffnn.init_from_fans(gen, fans, in_features_ffnn), {}),
-                         apply_trials=apply_trials)
+        return _spec(model, ("ffnn",), init,
+                     lambda hps: {"ffnn_max_width": _ffnn_width(hps, key=None)},
+                     apply_trials,
+                     fan_ins=lambda hp: ffnn.fan_ins(hp, in_features_ffnn))
 
     if model == "CNN":
-        def apply(params, bn_state, hp, inputs, train, seed, row_mask,
-                  compute_dtype, statics=None, shard=None):
-            x = _seq_input(inputs, compute_dtype)
-            gen = torch.Generator(x.device).manual_seed(int(seed))
-            st = statics or {}
-            return cnn.apply(params, bn_state, hp, x, train=train, generator=gen,
-                             row_mask=row_mask, compute_dtype=compute_dtype,
-                             max_depth=st.get("cnn_max_depth"),
-                             max_channels=st.get("cnn_max_channels"),
-                             max_kernels=st.get("cnn_max_kernels"),
-                             shard=shard)
-
         def apply_trials(params, bn_state, trials, inputs, train, row_mask,
                          compute_dtype, statics=None, shard=None, seed=0):
             st = statics or {}
@@ -170,30 +169,13 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
                 max_channels=st.get("cnn_max_channels"),
                 max_kernels=st.get("cnn_max_kernels"), shard=shard)
 
-        return ModelSpec(model, ("cnn",), cnn.init, apply,
-                         lambda hps: _cnn_statics(hps, key=None),
-                         fan_ins=cnn.fan_ins, init_from_fans=cnn.init_from_fans,
-                         apply_trials=apply_trials)
+        return _spec(model, ("cnn",), cnn.init,
+                     lambda hps: _cnn_statics(hps, key=None), apply_trials,
+                     fan_ins=cnn.fan_ins)
 
     if model == "EmbraceNetMultimodal":
         def init(generator, hp):
             return embracenet.init(generator, hp, in_features_ffnn)
-
-        def apply(params, bn_state, hp, inputs, train, seed, row_mask,
-                  compute_dtype, statics=None, shard=None):
-            x = _seq_input(inputs, compute_dtype)
-            st = statics or {}
-            return embracenet.apply(params, bn_state, hp, inputs["ffnn"], x,
-                                    train=train, seed=seed, row_mask=row_mask,
-                                    compute_dtype=compute_dtype,
-                                    cnn_max_depth=st.get("cnn_max_depth"),
-                                    cnn_max_channels=st.get("cnn_max_channels"),
-                                    cnn_max_kernels=st.get("cnn_max_kernels"),
-                                    ffnn_max_width=st.get("ffnn_max_width"),
-                                    embrace_max=st.get("embrace_max"),
-                                    post_max=st.get("post_max"),
-                                    fused=st.get("fused_embrace", False),
-                                    shard=shard)
 
         def statics(hps):
             out = _cnn_statics(hps)
@@ -216,28 +198,12 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
                 embrace_max=st.get("embrace_max"), post_max=st.get("post_max"),
                 fused=st.get("fused_embrace", False), shard=shard)
 
-        return ModelSpec(model, ("ffnn", "cnn"), init, apply, statics,
-                         fan_ins=lambda hp: embracenet.fan_ins(hp, in_features_ffnn),
-                         init_from_fans=lambda gen, fans: embracenet.init_from_fans(
-                             gen, fans, in_features_ffnn),
-                         apply_trials=apply_trials)
+        return _spec(model, ("ffnn", "cnn"), init, statics, apply_trials,
+                     fan_ins=lambda hp: embracenet.fan_ins(hp, in_features_ffnn))
 
     if model == "ConcatNetMultimodal":
         def init(generator, hp):
             return concatnet.init(generator, hp, in_features_ffnn)
-
-        def apply(params, bn_state, hp, inputs, train, seed, row_mask,
-                  compute_dtype, statics=None, shard=None):
-            x = _seq_input(inputs, compute_dtype)
-            st = statics or {}
-            return concatnet.apply(params, bn_state, hp, inputs["ffnn"], x,
-                                   train=train, seed=seed, row_mask=row_mask,
-                                   compute_dtype=compute_dtype,
-                                   cnn_max_depth=st.get("cnn_max_depth"),
-                                   cnn_max_channels=st.get("cnn_max_channels"),
-                                   cnn_max_kernels=st.get("cnn_max_kernels"),
-                                   ffnn_max_width=st.get("ffnn_max_width"),
-                                   post_max=st.get("post_max"), shard=shard)
 
         def statics(hps):
             out = _cnn_statics(hps)
@@ -258,11 +224,8 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
                 ffnn_max_width=st.get("ffnn_max_width"),
                 post_max=st.get("post_max"), shard=shard)
 
-        return ModelSpec(model, ("ffnn", "cnn"), init, apply, statics,
-                         fan_ins=lambda hp: concatnet.fan_ins(hp, in_features_ffnn),
-                         init_from_fans=lambda gen, fans: concatnet.init_from_fans(
-                             gen, fans, in_features_ffnn),
-                         apply_trials=apply_trials)
+        return _spec(model, ("ffnn", "cnn"), init, statics, apply_trials,
+                     fan_ins=lambda hp: concatnet.fan_ins(hp, in_features_ffnn))
 
     if model == "CNN_LSTM":
         def _arch(hp):
@@ -279,13 +242,6 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
                                  "run trials sequentially")
             return {"cnn_lstm_arch": archs.pop()}
 
-        def apply(params, bn_state, hp, inputs, train, seed, row_mask,
-                  compute_dtype, statics=None, shard=None):
-            x = _seq_input(inputs, compute_dtype)
-            return cnn_lstm.apply(params, bn_state, hp, x, train=train,
-                                  seed=seed, row_mask=row_mask,
-                                  compute_dtype=compute_dtype, shard=shard)
-
         def apply_trials(params, bn_state, trials, inputs, train, row_mask,
                          compute_dtype, statics=None, shard=None, seed=0):
             return cnn_lstm.apply_trials(
@@ -293,9 +249,8 @@ def _build_spec(model: str, in_features_ffnn: int | None = None) -> ModelSpec:
                 _seq_trials(inputs, len(trials), compute_dtype), train=train,
                 row_mask=row_mask, compute_dtype=compute_dtype, shard=shard)
 
-        # no fan-ins: parameter shapes follow the trial, so engine.fit
-        # inits each trial through ``init``
-        return ModelSpec(model, ("cnn",), cnn_lstm.init, apply, statics,
-                         vmappable=False, apply_trials=apply_trials)
+        # no fan-ins: parameter shapes follow the trial
+        return _spec(model, ("cnn",), cnn_lstm.init, statics, apply_trials,
+                     vmappable=False)
 
     raise ValueError(f"unknown model family: {model} (use one of {MODEL_FAMILIES})")

@@ -168,7 +168,8 @@ def test_concatnet_bf16_and_spec_match_jax(rng):
     fans = tcat.fan_ins(hp, IN_FEATURES)
     jax.tree.map(np.testing.assert_array_equal, fans,
                  jcat.fan_ins(hp, IN_FEATURES))
-    p_t, bn_t = tspec.init_from_fans(torch.Generator().manual_seed(0), fans)
+    p_t, bn_t = tcat.init_from_fans(torch.Generator().manual_seed(0), fans,
+                                    IN_FEATURES)
     assert jax.tree.map(lambda a: tuple(a.shape), (p_t, bn_t)) == \
         jax.tree.map(lambda a: tuple(np.shape(a)), (params, bn))
 

@@ -245,25 +245,23 @@ def _run_both(tmp_path, tag, data, model, cv_kw, t_kw):
     return out
 
 
-@pytest.mark.parametrize("share", [False, True])
 @pytest.mark.parametrize("fuse", [False, True])
 @pytest.mark.parametrize("model", ["FFNN", "EmbraceNetMultimodal"])
 def test_kfoldcv_accounting_matches_the_jax_package(
-        jax_knn, tmp_path, cv_fakes, rng, model, fuse, share):
+        jax_knn, tmp_path, cv_fakes, rng, model, fuse):
     calls, resets = cv_fakes
     # 360 windows: the reference's reverse-strand assert (ratio 0.1 to two
     # decimals) holds in every fold
     data = _imbalanced(rng, n=360, d=8)
     if model == "FFNN":
         data = {k: data[k] for k in ("ffnn", "y")}
-    cv_kw = dict(n_folds=3, n_trials=3, sampler="random", fuse_folds=fuse,
-                 share_programs=share)
+    cv_kw = dict(n_folds=3, n_trials=3, sampler="random", fuse_folds=fuse)
     t_kw = dict(num_epochs=5, batch_size=30)
     out = _run_both(tmp_path, "a", data, model, cv_kw, t_kw)
     same_calls(calls)
     assert len(calls["torch"]) == (2 if fuse else 6)
     assert plain(resets["torch"]) == plain(resets["jax"])
-    assert len(resets["torch"]) == 3 * (3 if share else 1)
+    assert len(resets["torch"]) == 3
     for i in ([1] if fuse else [1, 3, 5]):          # the retrains
         assert plain(to_numpy(calls["torch"][i]["kw"]["init_params"])) == plain(
             to_numpy(calls["jax"][i]["kw"]["init_params"]))

@@ -137,7 +137,7 @@ def test_the_recorded_plan_draws_every_family_as_its_host_init(model):
     host = engine.host_init(spec, hps, seeds)
     # the plan: the host init's drawn leaves, in draw order, from one stream
     plan = InitPlan()
-    tree = engine._init_one(spec, plan, hps[1])
+    tree = spec.init(plan, hps[1])
     drawn = {id(leaf): k for k, leaf in enumerate(plan.leaves)}
     leaves, host_leaves = tree_leaves(tree), tree_leaves(
         (host[0], host[1]))
@@ -179,7 +179,7 @@ def test_init_population_counts_its_draws_and_copies_only_constants():
     profiling.reset_counters()
     params, bn_state = engine.init_population(spec, hps, [3, 4], "cpu")
     plan = InitPlan()
-    engine._init_one(spec, plan, hps[0])
+    spec.init(plan, hps[0])
     c = profiling.counters()
     assert c["engine.init_device_draws"] == 2 * sum(int(np.prod(s))
                                                     for s in plan.shapes)
@@ -187,6 +187,58 @@ def test_init_population_counts_its_draws_and_copies_only_constants():
     assert c["engine.to_device_bytes"] == sum(
         a.nbytes for a in tree_leaves((constants, bn_state)))
     profiling.reset_counters()
+
+
+@pytest.mark.parametrize("width_buckets", [False, True])
+def test_a_cpu_fit_without_trees_starts_from_the_host_init(width_buckets,
+                                                           monkeypatch):
+    """``engine.fit`` on the CPU draws its population as on the card
+    (``init_population``): the params its first step takes are
+    ``host_init``'s bit for bit (cut to the width buckets where the fit
+    cuts them), and ``engine.init_device_draws`` counts every drawn
+    number."""
+    from embracenet_tpu_torch.config import TrainConfig
+    from embracenet_tpu_torch.convert import tree_map
+    from embracenet_tpu_torch.training import slicing
+
+    spec = get_spec("EmbraceNetMultimodal", 16)
+    flats = [space.sample_params("EmbraceNetMultimodal",
+                                 np.random.default_rng(i)) for i in range(2)]
+    hps = [space.params_to_hp("EmbraceNetMultimodal", f) for f in flats]
+    opts = [space.optimizer_hp(f) for f in flats]
+    rng = np.random.default_rng(1)
+    data = {"ffnn": rng.normal(size=(60, 16)).astype(np.float32),
+            "cnn": rng.integers(0, 4, size=(60, 256), dtype=np.uint8),
+            "y": (rng.random(60) < 0.3).astype(np.int64)}
+    first = []
+    step = engine.population_step
+
+    def spy(spec_, params, *args, **kw):
+        if not first:
+            first.append(tree_map(lambda a: a.detach().clone(), params))
+        return step(spec_, params, *args, **kw)
+
+    monkeypatch.setattr(engine, "population_step", spy)
+    cfg = TrainConfig(num_epochs=1, batch_size=40, seed=2**31 + 7,
+                      width_buckets=width_buckets)
+    profiling.reset_counters()
+    engine.fit(spec, hps, opts, data, data, cfg, device="cpu")
+    c = profiling.counters()
+    profiling.reset_counters()
+    seeds, _ = engine.seed_streams(cfg.seed, 2)
+    params, bn_state = engine.host_init(spec, hps, seeds)
+    statics = engine._resolve_statics(spec, hps, cfg)
+    if width_buckets:
+        params, bn_state = slicing.shrink(spec.name, params, bn_state,
+                                          statics)
+    got, want = tree_leaves(first[0]), tree_leaves(params)
+    assert len(got) == len(want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    plan = InitPlan()
+    spec.init(plan, hps[0])
+    assert c["engine.init_device_draws"] == 2 * sum(int(np.prod(s))
+                                                    for s in plan.shapes)
+    assert "mt19937.launches" not in c
 
 
 def test_trials_of_different_shapes_are_refused():

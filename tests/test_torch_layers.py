@@ -231,13 +231,21 @@ def test_one_hot_and_codec(rng):
                                   jcodec.complement_codes(codes))
 
 
+#: JAX config fields the port leaves out (ROADMAP Queue 3, "Compiled-program
+#: reuse"; allow-listed in tests/test_torch_surface.py)
+CONFIG_LEFT_OUT = {("TrainConfig", "cnn_full_depth"),
+                   ("TrainConfig", "pad_ffnn_features"),
+                   ("CVConfig", "share_programs")}
+
+
 def test_config_copies_equal():
     for name in dir(jconfig):
         if name.isupper():
             assert getattr(tconfig, name) == getattr(jconfig, name), name
     for cls in ("TrainConfig", "CVConfig", "MeshConfig", "ExperimentConfig"):
         j, p = getattr(jconfig, cls), getattr(tconfig, cls)
-        assert [(f.name, f.default) for f in dataclasses.fields(j)] == \
+        assert [(f.name, f.default) for f in dataclasses.fields(j)
+                if (cls, f.name) not in CONFIG_LEFT_OUT] == \
                [(f.name, f.default) for f in dataclasses.fields(p)], cls
     assert tconv.CNN_LENGTHS == jconv.CNN_LENGTHS
     for depth in range(1, 5):

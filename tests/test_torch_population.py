@@ -345,7 +345,7 @@ def test_a_stacked_step_is_one_program_for_every_trial(rng):
     hps, opts = _mixed_population()
     hps, opts = hps[1:], opts[1:]
     gens = [torch.Generator().manual_seed(s) for s in (11, 12)]
-    inits = [SPEC.init_from_fans(g, SPEC.fan_ins(h)) for g, h in zip(gens, hps)]
+    inits = [SPEC.init(g, h) for g, h in zip(gens, hps)]
     params = engine.stack_trials([i[0] for i in inits])
     bn = engine.stack_trials([i[1] for i in inits])
     state = toptim.init_state(params, lead=(2,))
@@ -422,3 +422,67 @@ def test_serving_is_a_population_of_one(rng, tmp_path):
                          False, 3, None, None, dict(model.statics))
     np.testing.assert_array_equal(got, want.numpy())
     assert dataclasses.is_dataclass(model.trials) and len(model.trials) == 1
+
+
+def _module_apply(model, params, bn, hp, inputs, train, seed, mask):
+    """One trial through the family module's own ``apply``, its draws from
+    a CPU generator seeded with ``seed``."""
+    from embracenet_tpu_torch.data import codec
+    from embracenet_tpu_torch.models import (cnn, cnn_lstm, concatnet,
+                                             embracenet, ffnn)
+
+    gen = torch.Generator().manual_seed(seed)
+    x = codec.one_hot(inputs["cnn"]) if "cnn" in inputs else None
+    if model == "FFNN":
+        return ffnn.apply(params, hp, inputs["ffnn"], train=train,
+                          generator=gen), bn
+    if model == "CNN":
+        return cnn.apply(params, bn, hp, x, train=train, generator=gen,
+                         row_mask=mask)
+    if model == "CNN_LSTM":
+        return cnn_lstm.apply(params, bn, hp, x, train=train, seed=seed,
+                              row_mask=mask)
+    mod = embracenet if model == "EmbraceNetMultimodal" else concatnet
+    return mod.apply(params, bn, hp, inputs["ffnn"], x, train=train,
+                     seed=seed, row_mask=mask)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("model", ["FFNN", "CNN", "CNN_LSTM",
+                                   "EmbraceNetMultimodal",
+                                   "ConcatNetMultimodal"])
+def test_spec_apply_is_the_module_apply_and_a_population_of_one(rng, model,
+                                                                train):
+    """``spec.apply`` is the family module's ``apply`` and its
+    ``apply_trials`` of a population of one (stacked here by hand, its
+    draws from a generator seeded with the same seed), bit for bit: logits
+    and new BatchNorm state."""
+    spec = get_spec(model, IN_FEATURES)
+    hp = tspace.params_to_hp(model, tspace.sample_params(
+        model, np.random.default_rng(4)))
+    params, bn = spec.init(torch.Generator().manual_seed(1), hp)
+    inputs = {"ffnn": t(rng.normal(size=(12, IN_FEATURES)).astype(np.float32)),
+              "cnn": t(rng.integers(0, 4, size=(12, 256)).astype(np.uint8))}
+    inputs = {k: v for k, v in inputs.items() if k in spec.inputs}
+    mask = torch.ones(12)
+    mask[-2:] = 0.0
+    seed = 29
+    got = spec.apply(params, bn, hp, inputs, train, seed, mask, None)
+    mod = _module_apply(model, params, bn, hp, inputs, train, seed, mask)
+    draws = layers.Draws.one(torch.Generator().manual_seed(seed), 12,
+                             "cpu") if train else None
+    stack = lambda tree: tree_map(lambda a: a[None], tree)  # noqa: E731
+    logits, new_bn = spec.apply_trials(
+        stack(params), stack(bn), layers.Trials([hp], stack_hps([hp]), None,
+                                                draws),
+        inputs, train, mask[None], None, None, None, seed)
+    pop = (logits[0], tree_map(lambda a: a[0], new_bn))
+    for other in (mod, pop):
+        assert torch.equal(got[0], other[0])
+        a, b = tree_leaves(got[1]), tree_leaves(other[1])
+        assert len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+    if train and model != "FFNN":
+        # the draws moved the logits: a train forward is not an eval one
+        assert not torch.equal(got[0], spec.apply(params, bn, hp, inputs,
+                                                  False, seed, mask, None)[0])

@@ -32,6 +32,7 @@ JAX, PORT = "embracenet_tpu", "embracenet_tpu_torch"
 
 # The stated divergences (ROADMAP.md, Queue 3) ------------------------------
 SEEDS = "Integer seeds where JAX takes PRNG keys"
+PROGRAMS = "Compiled-program reuse"
 #: modules with no counterpart at the same path
 MODULES_LEFT_OUT = {
     "ops/pallas/__init__.py": "The TPU kernels' module",
@@ -44,6 +45,9 @@ NAMES_LEFT_OUT = {
     ("training/engine.py", "key_streams"): SEEDS,
     ("training/modelspec.py", "ModelSpec.init_traced"): SEEDS,
     ("utils/profiling.py", "StepTimer"): "Profiling hooks",
+    ("config.py", "TrainConfig.cnn_full_depth"): PROGRAMS,
+    ("config.py", "TrainConfig.pad_ffnn_features"): PROGRAMS,
+    ("config.py", "CVConfig.share_programs"): PROGRAMS,
 }
 #: parameters the port leaves out wherever JAX takes them
 PARAMS_LEFT_OUT_EVERYWHERE = {"key": SEEDS, "init_keys": SEEDS,

@@ -177,6 +177,8 @@ def test_train_steps_count_the_plan(traced_fit):
 
 
 def test_to_device_bytes_count_every_array_a_fit_moves(traced_fit):
+    """The init's constants (BatchNorm's; its drawn leaves are drawn on the
+    device, not copied), the split, the plans and the hyperparameters."""
     res, hps, opts = traced_fit["res"], traced_fit["hps"], traced_fit["opts"]
     train, test = traced_fit["train"], traced_fit["test"]
     T = len(hps)
@@ -186,7 +188,8 @@ def test_to_device_bytes_count_every_array_a_fit_moves(traced_fit):
 
     plan = balanced_plan(train["y"], CFG.batch_size, seed=123)
     tplan = eval_plan(len(test["y"]), 2 * CFG.batch_size, seed=123)
-    want = (nbytes(res.params) + nbytes(res.bn_state)
+    want = (nbytes({k: v for k, v in res.params["cnn"].items()
+                    if k.startswith("bn")}) + nbytes(res.bn_state)
             + sum(nbytes(d) for d in (train, test))
             + 12 * (plan.idx.size + tplan.idx.size)   # int64 rows, f32 mask
             + sum(np.asarray([o[k] for o in opts]).nbytes

@@ -70,7 +70,7 @@ def population(config: str):
 def case(name, spec, hps, seeds, dev, reps) -> dict:
     plans = [InitPlan() for _ in hps]
     for plan, hp in zip(plans, hps):
-        engine._init_one(spec, plan, hp)
+        spec.init(plan, hp)
     shapes, bounds = plans[0].shapes, [p.bounds for p in plans]
     words = sum(int(torch.Size(s).numel()) for s in shapes)
     kernel, init, got = [], [], None
