@@ -5,8 +5,9 @@
 Needs one CUDA card and ``nvcc``; exits non-zero, printing no result,
 without them.  It
 
-1. builds the fused embrace kernel (``embracenet_tpu_torch/csrc/embrace.cu``)
-   and the MT19937 init kernel (``csrc/mt19937.cu``) with nvcc for sm_90a
+1. builds the fused embrace kernel (``embracenet_tpu_torch/csrc/embrace.cu``),
+   the MT19937 init kernel (``csrc/mt19937.cu``) and the fused optimizer
+   update (``csrc/optim_update.cu``) with nvcc for sm_90a
    and prints each one's build time and its own ptxas report;
 2. kernel phase: holds the kernel against its plain PyTorch version at the
    serving path's shape (B=4096, D0=256, D1=7936, E=1024), at a ragged
@@ -84,6 +85,15 @@ without them.  It
    counters): one on the card without ``init_params`` launches the kernel
    once, any other fit never, and the kernel's row in the ``kernels`` line
    counts those launches;
+5c. update phase: ``tools/torch_optim_bench.py``'s cases at the pop8
+   population (8 trials, 34 leaves, 95.66 M numbers) in float32, with bf16
+   m and v, and with bf16 params over a float32 master: three chained
+   steps of the fused optimizer update (``csrc/optim_update.cu``) equal
+   the plain version bit for bit, leave their inputs as they were and
+   launch once a call; its device ms beside its bound (the bytes it must
+   move at 3.35 TB/s) and the plain version's ms.  Every watched fit on
+   the card launches it once a train step (``optim.launches`` against
+   ``engine.train_steps``, each mesh rank's too), a fit on the CPU never;
 6. train phase: ``engine.fit`` on the card for the widest
    EmbraceNetMultimodal (566 features, Adam lr 1e-3, batch 100, float32,
    fused kernel on) over learnable synthetic data from seed 0 (3,000 train
@@ -245,7 +255,7 @@ from embracenet_tpu_torch.models import embracenet
 from embracenet_tpu_torch.models.layers import _highest_matmul_precision
 from embracenet_tpu_torch.models.reload import ReloadedModel, load_model
 from embracenet_tpu_torch.ops import embrace as K
-from embracenet_tpu_torch.ops import mt19937
+from embracenet_tpu_torch.ops import mt19937, optim
 from embracenet_tpu_torch.training import engine
 from embracenet_tpu_torch.training.batching import balanced_plan, eval_plan
 from embracenet_tpu_torch.training.bucketing import plan_buckets
@@ -264,6 +274,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 import torch_embrace_bench as bench  # noqa: E402
 import torch_init_draws_bench as init_draws  # noqa: E402
+import torch_optim_bench as optim_bench  # noqa: E402
 
 MAIN = dict(B=4096, D0=256, D1=7936, E=1024, live=1024)
 RAGGED = dict(B=100, D0=200, D1=5568, E=768, live=512)
@@ -306,14 +317,17 @@ class InitDraws:
     without ``init_params`` draws its init there, one launch of the MT19937
     kernel (``mt19937.launches``); a fit on the CPU or given its init
     launches none.  Counts those fits and launches, in all and per phase
-    (:meth:`lap`)."""
+    (:meth:`lap`).  Each fit on the card also updates through the fused
+    optimizer kernel, one launch a train step (``optim.launches`` against
+    ``engine.train_steps``), and a fit on the CPU never: those launches are
+    :attr:`update_launches`."""
 
     def __init__(self):
         import inspect
 
         self.real = engine.fit
         self.signature = inspect.signature(engine.fit)
-        self.fits = self.launches = 0
+        self.fits = self.launches = self.update_launches = 0
         self.phases, self._lap = {}, (0, 0)
 
     def __call__(self, *args, **kw):
@@ -323,9 +337,16 @@ class InitDraws:
                else et.resolve_device(bound_args.get("device")))
         on_card = (torch.device(dev).type == "cuda"
                    and bound_args.get("init_params") is None)
-        before = counters().get("mt19937.launches", 0)
+        names = ("mt19937.launches", "optim.launches", "engine.train_steps")
+        before = [counters().get(k, 0) for k in names]
         res = self.real(*args, **kw)
-        launched = counters().get("mt19937.launches", 0) - before
+        launched, updates, steps = (counters().get(k, 0) - b
+                                    for k, b in zip(names, before))
+        card = torch.device(dev).type == "cuda"
+        require(updates == (steps if card else 0),
+                f"update: a fit on {dev} launched the fused optimizer update "
+                f"{updates} times in {steps} train steps")
+        self.update_launches += updates
         require(launched == int(on_card), f"init draws: a fit on {dev} "
                 f"{'without' if bound_args.get('init_params') is None else 'with'}"
                 f" init_params launched the MT19937 kernel {launched} times, "
@@ -1990,6 +2011,8 @@ def mesh_worker(workdir) -> int:
         wall = time.perf_counter() - t0
         out[name] = {"wall_s": wall, "launches": fused_launches(),
                      "init_launches": fused_launches("mt19937.launches"),
+                     "update_launches": fused_launches("optim.launches"),
+                     "train_steps": fused_launches("engine.train_steps"),
                      "row_bases": sorted(bases), "allreduce_s": reduce_s[0],
                      "allreduce_calls": reduce_s[1], "device": str(mesh.device),
                      "coords": mesh.coords, "hist": fit_history(res),
@@ -2097,6 +2120,11 @@ def mesh_phase(workdir):
                 f"mesh: rank {r['rank']} launched the MT19937 kernel "
                 f"{trial['init_launches']} and {data['init_launches']} times "
                 "in its two fits, expected once a fit")
+        for fit in (trial, data):
+            require(fit["update_launches"] == fit["train_steps"] > 0,
+                    f"mesh: rank {r['rank']} launched the fused optimizer "
+                    f"update {fit['update_launches']} times in "
+                    f"{fit['train_steps']} train steps")
         require(trial["launches"] == per_trial and trial["row_bases"] == [0],
                 f"mesh: rank {r['rank']} of the trial mesh launched "
                 f"{trial['launches']} at rows {trial['row_bases']}, expected "
@@ -2144,6 +2172,8 @@ def mesh_phase(workdir):
             "init_launches": sum(r[m]["init_launches"] for r in ranks
                                  for m in ("trial_2x1", "data_1x2")),
             "init_card_fits": 2 * len(ranks),
+            "update_launches": sum(r[m]["update_launches"] for r in ranks
+                                   for m in ("trial_2x1", "data_1x2")),
             "plan_widths": [w_tr, w_ev],
             "windows": windows, "train_steps_per_trial": n_tr,
             "eval_batches_per_trial": n_ev,
@@ -2222,7 +2252,8 @@ def main() -> int:
         walls[phase] = now - clock[0]
         clock[0] = now
 
-    for source, load in ((K.SOURCE, K._load), (mt19937.SOURCE, mt19937._load)):
+    for source, load in ((K.SOURCE, K._load), (mt19937.SOURCE, mt19937._load),
+                         (optim.SOURCE, optim._load)):
         t0 = time.perf_counter()
         built = K.build(source)
         load()
@@ -2275,6 +2306,15 @@ def main() -> int:
             "init draws: the kernel was not launched once a call")
     print(json.dumps({"init_draws": draws, "card": card}), flush=True)
     lap("init_draws")
+    # the fused optimizer update at the pop8 population, in its three types
+    updates = optim_bench.run(dev, seed=0, reps=10)
+    require(all(c["equal"] and c["inputs_unchanged"] for c in updates),
+            "update: the kernel differs from the plain version or wrote into "
+            "its inputs")
+    require(all(c["launches"] == [1, 1, 1] for c in updates),
+            "update: the kernel was not launched once a call")
+    print(json.dumps({"optim_update": updates, "card": card}), flush=True)
+    lap("optim_update")
 
     build_dir = os.path.join(REPO, "embracenet_tpu_torch", "_build")
     # every fit of the main-path phases, in this process (the mesh ranks
@@ -2341,6 +2381,7 @@ def main() -> int:
     engine.fit = init_fits.real
     init_fits.phases["mesh"]["card_fits"] += mesh_out["init_card_fits"]
     init_fits.phases["mesh"]["launches"] += mesh_out["init_launches"]
+    init_fits.update_launches += mesh_out["update_launches"]
     init_launches = sum(p["launches"] for p in init_fits.phases.values())
     init_card_fits = sum(p["card_fits"] for p in init_fits.phases.values())
     require(init_card_fits > 0 and init_launches == init_card_fits,
@@ -2393,6 +2434,23 @@ def main() -> int:
                 "bound_by": "bytes", "library_ms": None,
                 "words_per_s_per_stream": pop8["words_per_s_per_stream"]}
 
+    def update_row(launches, cs):
+        """The fused optimizer update: its main-path launches (one a train
+        step of every card fit); times of the pop8 float32 case; plain_ms
+        the PyTorch composite it replaces; no library call computes this
+        update."""
+        pop8 = cs[0]
+        return {"name": "optim_update", "route": "cuda",
+                "source": "embracenet_tpu_torch/csrc/optim_update.cu",
+                "replaces": None, "launches": launches,
+                "max_abs_err": 0.0 if all(c["equal"] for c in cs) else None,
+                "ms": pop8["ms"], "device_ms": pop8["device_ms"],
+                "plain_ms": pop8["plain_ms"], "bound_ms": pop8["bound_ms"],
+                "bound_by": "bytes", "library_ms": None,
+                "roofline_pct": pop8["roofline_pct"]}
+
+    require(init_fits.update_launches > 0, "update: no main-path fit "
+            "launched the fused optimizer update")
     print(card, flush=True)
     print(json.dumps({"kernels": [
         row("embrace_fused_fwd", 39,
@@ -2405,7 +2463,8 @@ def main() -> int:
             fulle_cases + [{"dtype": c["dtype"],
                             "max_abs_err": c["fulle_max_abs_err"]}
                            for c in trial_cases]),
-        init_row(init_launches, draws)]}), flush=True)
+        init_row(init_launches, draws),
+        update_row(init_fits.update_launches, updates)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,8 +6,9 @@ the checkpoint's second backend saving tensors on the card, the
 program's spans on the device trace's clock, the float32 population
 convolution's GEMM path (a trial's sums alike in any population, against
 cuDNN's grouped convolution), CNN_LSTM's recurrence against cuDNN's
-LSTM called directly, and a population's initial parameters drawn by the
-MT19937 kernel against the CPU generators' draws, bit for bit.
+LSTM called directly, a population's initial parameters drawn by the
+MT19937 kernel against the CPU generators' draws, bit for bit, and the
+fused optimizer update against its plain version, bit for bit.
 They skip without a card.  This file imports neither JAX nor the
 JAX package, so the machine with the card runs it on its own:
 
@@ -883,3 +884,192 @@ def test_a_fit_on_the_card_starts_from_the_cpu_init(cuda, monkeypatch,
         "engine.init_device_draws"] == drawn
     assert card["mt19937.launches"] == 1 and "mt19937.launches" not in cpu
     assert card["engine.to_device_bytes"] == cpu["engine.to_device_bytes"]
+
+
+def _update_inputs(dev, shapes, lead, s_dtype=None, master=False, seed=0,
+                   none_leaf=None, misaligned=False):
+    """A tree of leaves ``[*lead, *shape]`` drawn on ``dev``, its state
+    (``optim.init_state``) and a gradient maker: leaf ``none_leaf``'s
+    gradient None; with ``misaligned`` every gradient sits one element
+    past a 16-byte boundary."""
+    from embracenet_tpu_torch.convert import tree_map
+    from embracenet_tpu_torch.ops import optim
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = {f"l{i}": torch.randn(*lead, *s, generator=gen, device=dev)
+              for i, s in enumerate(shapes)}
+    state = optim.init_state(params, s_dtype, master, lead=lead)
+    if master:
+        params = tree_map(lambda a: a.to(torch.bfloat16), params)
+
+    def grads():
+        out = {}
+        for i, (k, p) in enumerate(params.items()):
+            g = torch.randn(p.numel() + 1, generator=gen, device=dev) * 1e-2
+            g = g[1:] if misaligned else g[:-1]
+            out[k] = None if i == none_leaf else g.to(p.dtype).view(p.shape)
+        return out
+
+    return params, state, grads
+
+
+def _hp(dev, n):
+    """Mixed optimizers (Adam, Nadam, RMSprop in turn) and rates for ``n``
+    trials ([n] tensors; 0-d for ``n`` None)."""
+    ids = torch.arange(n or 1, device=dev) % 3
+    lr = torch.linspace(1e-3, 3e-2, n or 1, device=dev)
+    wd = torch.linspace(0.0, 1e-3, n or 1, device=dev)
+    return (ids, lr, wd) if n else (ids[0], lr[0], wd[0])
+
+
+def _updates_alike(params, state, grads, hp, upds, steps=3):
+    """``steps`` chained calls of ``apply_update`` (the kernel) and of its
+    plain version from the same state: params, m, v, master, step and
+    m_schedule equal bit for bit at every step, the kernel's inputs left as
+    they were, and one launch a call."""
+    from embracenet_tpu_torch.convert import tree_leaves
+    from embracenet_tpu_torch.ops import optim
+
+    for step in range(steps):
+        g = grads()
+        upd = upds[step % len(upds)]
+        ins = [t for t in tree_leaves((params, g, state)) if t is not None]
+        copies = [t.clone() for t in ins]
+        before = _launches("optim.launches")
+        new_p, new_s = optim.apply_update(params, g, state, *hp, upd)
+        assert _launches("optim.launches") == before + 1
+        ref_p, ref_s = optim.apply_update_reference(params, g, state, *hp,
+                                                    upd)
+        torch.cuda.synchronize()
+        assert sorted(new_s) == sorted(ref_s)
+        for a, b in zip(tree_leaves((new_p, new_s)),
+                        tree_leaves((ref_p, ref_s))):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert a.is_contiguous() and a.device.type == "cuda"
+            assert torch.equal(a, b), f"step {step}: the kernel differs"
+        for a, b in zip(ins, copies):
+            assert torch.equal(a, b), "the kernel wrote into its inputs"
+        params, state = new_p, new_s
+
+
+@pytest.mark.parametrize("s_dtype,master", [(None, False),
+                                            (torch.bfloat16, False),
+                                            (None, True)],
+                         ids=["float32", "bf16_state", "bf16_master"])
+def test_fused_update_equals_the_plain_version_bit_for_bit(cuda, s_dtype,
+                                                           master):
+    """Five trials of mixed optimizers, odd and aligned leaves, one None
+    gradient, trials frozen on the second step: the kernel's update is the
+    plain version's bit for bit over three chained steps, in float32, with
+    bf16 m and v, and with bf16 params over a float32 master."""
+    shapes = [(566, 256), (256,), (7, 3), (64, 4, 15), (1,), (8200,)]
+    params, state, grads = _update_inputs(cuda, shapes, (5,), s_dtype,
+                                          master, none_leaf=2)
+    upds = [None, torch.tensor([True, False, True, True, False], device=cuda)]
+    _updates_alike(params, state, grads, _hp(cuda, 5), upds)
+
+
+def test_fused_update_at_the_pop8_population(cuda):
+    """``embracenet-hepg2``'s 8 trials at their 34 leaf shapes, with their
+    own optimizers and rates, as a fit draws them: bit for bit."""
+    from embracenet_tpu_torch.convert import tree_leaves, tree_unflatten
+    from embracenet_tpu_torch.ops import optim
+
+    import sys
+    import os
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import torch_optim_bench
+
+    params, opt_hp = torch_optim_bench.pop8(cuda, 2**31 + 23)
+    assert len(tree_leaves(params)) == 34
+    gen = torch.Generator(device=cuda).manual_seed(1)
+
+    def grads():
+        return tree_unflatten(params, [
+            torch.randn(p.shape, generator=gen, device=cuda) * 1e-2
+            for p in tree_leaves(params)])
+
+    hp = (opt_hp["optimizer"], opt_hp["lr"].float(),
+          opt_hp["weight_decay"].float())
+    _updates_alike(params, optim.init_state(params, lead=(8,)), grads, hp,
+                   [None], steps=2)
+
+
+@pytest.mark.parametrize("lead", [(1,), ()], ids=["T1", "no_trial_axis"])
+def test_fused_update_of_one_trial_with_misaligned_leaves(cuda, lead):
+    """One trial (a stacked population of one, and 0-d state) whose leaves
+    have odd sizes and whose gradients start off a 16-byte boundary: the
+    scalar path, bit for bit."""
+    params, state, grads = _update_inputs(
+        cuda, [(13,), (3, 5, 7), (9001,), (2,)], lead, misaligned=True)
+    _updates_alike(params, state, grads, _hp(cuda, lead[0] if lead else None),
+                   [None])
+
+
+def test_fused_update_coefficients_over_many_steps(cuda):
+    """4,096 one-number trials at steps 0 to 4,095, with momentum schedules
+    spread over (0.02, 1), each optimizer and a frozen trial in every few:
+    the kernel's per-trial coefficients, new step and momentum schedule are
+    the plain version's bit for bit at every step."""
+    from embracenet_tpu_torch.ops import optim
+
+    n = 4096
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    params = {"w": torch.randn(n, 1, generator=gen, device=cuda)}
+    state = optim.init_state(params, lead=(n,))
+    state["m"]["w"] = torch.randn(n, 1, generator=gen, device=cuda) * 1e-3
+    state["v"]["w"] = torch.rand(n, 1, generator=gen, device=cuda) * 1e-5
+    state["step"] = torch.arange(n, device=cuda, dtype=torch.float32)
+    state["m_schedule"] = 0.02 + 0.98 * torch.rand(n, generator=gen,
+                                                   device=cuda)
+    grads = {"w": torch.randn(n, 1, generator=gen, device=cuda) * 1e-2}
+    hp = (torch.arange(n, device=cuda, dtype=torch.int32) % 3,
+          torch.full((n,), 3e-3, device=cuda),
+          torch.full((n,), 1e-4, device=cuda))
+    upd = torch.arange(n, device=cuda) % 7 != 3
+    new = optim.apply_update(params, grads, state, *hp, upd)
+    ref = optim.apply_update_reference(params, grads, state, *hp, upd)
+    for name, a, b in (("params", new[0]["w"], ref[0]["w"]),
+                       ("m", new[1]["m"]["w"], ref[1]["m"]["w"]),
+                       ("v", new[1]["v"]["w"], ref[1]["v"]["w"]),
+                       ("step", new[1]["step"], ref[1]["step"]),
+                       ("m_schedule", new[1]["m_schedule"],
+                        ref[1]["m_schedule"])):
+        diff = (a != b).nonzero().flatten()[:5].tolist()
+        assert not diff, f"{name} differs at trials {diff}"
+
+
+def test_fused_update_refuses_what_it_does_not_take(cuda):
+    """A non-contiguous leaf, a float16 one, state of another shape and
+    more leaves than the kernel's arguments hold raise before any
+    launch."""
+    from embracenet_tpu_torch.ops import optim
+
+    params, state, grads = _update_inputs(cuda, [(4, 6)], (2,))
+    before = _launches("optim.launches")
+    bad = {"l0": params["l0"].transpose(1, 2)}
+    with pytest.raises(ValueError, match="contiguous"):
+        optim.apply_update(bad, grads(), optim.init_state(bad, lead=(2,)),
+                           *_hp(cuda, 2))
+    half = {"l0": params["l0"].half()}
+    with pytest.raises(ValueError, match="float16"):
+        optim.apply_update(half, {"l0": None}, optim.init_state(half,
+                                                                lead=(2,)),
+                           *_hp(cuda, 2))
+    with pytest.raises(ValueError, match="shape"):
+        optim.apply_update(params, {"l0": torch.zeros(2, 6, 4, device=cuda)},
+                           state, *_hp(cuda, 2))
+    many, many_state, many_grads = _update_inputs(
+        cuda, [(3,)] * (optim.MAX_LEAVES + 1), (2,))
+    with pytest.raises(ValueError, match="up to 64 leaves"):
+        optim.apply_update(many, many_grads(), many_state, *_hp(cuda, 2))
+    assert _launches("optim.launches") == before
+
+
+def test_a_fit_on_the_card_updates_through_the_kernel(cuda):
+    """``engine.fit`` launches the update kernel once a train step."""
+    profiling.reset_counters()
+    engine.fit(*_fit_inputs(), TrainConfig(num_epochs=2, batch_size=100))
+    got = profiling.counters()
+    assert got["optim.launches"] == got["engine.train_steps"] > 0
